@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU: the quickest proof that the port builds, is right, and serves.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, in order; any failure exits non-zero before the last line:
+
+1. device  — require CUDA, print the card's name and power limit, turn
+             TF32 off for float32 matrix products and convolutions;
+2. build   — compile every ``csrc/*.cu`` of the port with nvcc (sm_90a);
+3. kernels — each hand-written kernel against its plain PyTorch version on
+             the card, at the serving path's shapes, with max abs error and
+             limit, kernel / plain / library (SDPA) time from CUDA events
+             with the L2 cache flushed before every launch, and the least
+             time the card could take (bytes over memory rate or
+             operations over peak rate, whichever is larger);
+4. serve   — qwen2-0.5b at full width, random weights from the seed,
+             through ``ServeEngine``: 16 requests with prompts of 64-1024
+             tokens and 64 new tokens each, over 8 slots in chunks of 4;
+             every request must finish with 64 in-vocabulary tokens, both
+             kernels must have launched during the run, and a session
+             exported mid-decode and imported into a second engine must
+             continue the same token stream as the unmigrated request.
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the last
+line is ``{"ok": true, "device": {...}}``.  Nothing of JAX or of the JAX
+package is imported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# card name substring -> (memory bytes/s, bf16 dense FLOP/s, f32 FLOP/s),
+# NVIDIA data sheets; the SXM part is the default
+PEAKS = {"PCIe": (2.0e12, 756e12, 51e12),
+         "NVL": (3.9e12, 835e12, 60e12),
+         "SXM": (3.35e12, 989e12, 67e12)}
+
+N_TIMED = 20
+SPIN_CYCLES = 2_000_000      # ~1 ms of device time at the H100's clock
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+# ---------------------------------------------------------------------------
+
+def phase_device(torch):
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    peaks = next((v for k, v in PEAKS.items() if k in name), PEAKS["SXM"])
+    print(f"[device] {name} x{torch.cuda.device_count()}; peaks used for "
+          f"bounds: {peaks[0]:.3g} B/s, {peaks[1]:.3g} bf16 FLOP/s, "
+          f"{peaks[2]:.3g} f32 FLOP/s")
+    return card, name, peaks
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, flush) -> float:
+    """Mean device time of ``fn`` over N_TIMED launches, each timed with
+    CUDA events after an L2 flush (the serving path reads every layer's
+    cache and weights cold).  A spin kernel keeps the device busy while
+    the host enqueues ``fn``, so the events hold device time only, not
+    the host's dispatch of the wrapper."""
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(N_TIMED):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / N_TIMED
+
+
+def bound(peaks, nbytes: float, nops: float, dtype_is_bf16: bool):
+    t_bytes = nbytes / peaks[0]
+    t_ops = nops / (peaks[1] if dtype_is_bf16 else peaks[2])
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol):
+    B, Hq, Hkv, hd = 8, 14, 2, 64
+    dev = "cuda"
+    q = torch.randn(B, Hq, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
+    pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0], pos[1] = 0, Smax - 1
+    launches0 = rd.launches
+    out = rd.ragged_decode_attention(q, k, v, pos)
+    ref = rd.ragged_decode_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "ragged_decode: non-finite output")
+    err = (out - ref).abs().max().item()
+    check(err <= tol, f"ragged_decode {dt} Smax={Smax}: max abs err {err} "
+                      f"> {tol}")
+    ms = time_ms(torch, lambda: rd.ragged_decode_attention(q, k, v, pos),
+                 flush)
+    plain_ms = time_ms(torch, lambda: rd.ragged_decode_ref(q, k, v, pos),
+                       flush)
+    # library yardstick: one SDPA call with a per-slot mask
+    mask = (torch.arange(Smax, device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush)
+    rd.launches = launches0            # comparison launches do not count
+    es = q.element_size()
+    rows = int((pos.clamp(max=Smax - 1) + 1).sum().item())
+    nbytes = (q.numel() * es + 2 * rows * Hkv * hd * es + pos.numel() * 4
+              + out.numel() * 4)
+    nops = 4 * Hq * hd * rows
+    bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
+    print(f"[kernel] ragged_decode {str(dt)[6:]} B={B} Smax={Smax} Hq={Hq} "
+          f"Hkv={Hkv} hd={hd} live_rows={rows}: max_abs_err={err:.3g} "
+          f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol):
+    B, Hq, Hkv, hd = 1, 14, 2, 64
+    dev = "cuda"
+    # the model's (B, S, H, hd) activations, passed as (B, H, S, hd) views
+    q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    launches0 = fa.launches
+    out = fa.flash_attention(qt, kt, vt, causal=causal)
+    ref = fa.attention_ref(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= tol, f"flash_attention {dt} S={S} causal={causal}: max abs "
+                      f"err {err} > {tol}")
+    ms = time_ms(torch, lambda: fa.flash_attention(qt, kt, vt,
+                                                   causal=causal), flush)
+    plain_ms = time_ms(torch, lambda: fa.attention_ref(qt, kt, vt,
+                                                       causal=causal), flush)
+    qc, kc, vc = qt.contiguous(), kt.contiguous(), vt.contiguous()
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=causal, enable_gqa=True), flush)
+    fa.launches = launches0
+    es = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * es
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nops = 4 * B * Hq * hd * pairs
+    bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
+    print(f"[kernel] flash_attention {str(dt)[6:]} B={B} S={S} Hq={Hq} "
+          f"Hkv={Hkv} hd={hd} causal={causal}: max_abs_err={err:.3g} "
+          f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_kernels(torch, seed, peaks):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16 limit: N(0, 1) inputs, outputs up to ~4 in magnitude, one bf16
+    # rounding of p and (flash) of the output; f32: summation order only
+    rd_cases = [ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   2048, 2e-2),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   1000, 2e-2),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, f32,
+                                   1000, 1e-4)]
+    fa_cases = [flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
+                           True, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 512,
+                           True, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
+                           False, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
+                           True, 1e-4)]
+    del flush
+    # the line's numbers: the first case of each, the serving path's shape
+    return {"ragged_decode": dict(rd_cases[0], max_abs_err=max(
+                c["max_abs_err"] for c in rd_cases if c is not rd_cases[2])),
+            "flash_attention": dict(fa_cases[0], max_abs_err=max(
+                c["max_abs_err"] for c in fa_cases if c is not fa_cases[3]))}
+
+
+# ---------------------------------------------------------------------------
+# 4. serve
+# ---------------------------------------------------------------------------
+
+def _solo_stream(torch, np, model, params, prompt, max_new, export_after):
+    """One request alone on an 8-slot engine, to the end; with
+    ``export_after`` set, exported after that many steps and finished on a
+    second engine.  Batch shape and slot are the same either way, so the
+    two streams must match token for token."""
+    from repro_torch.serve import Request, ServeEngine
+    req = Request(rid=0, prompt=prompt, max_new=max_new)
+    a = ServeEngine(model, params, max_batch=8, max_seq=2048, decode_chunk=4)
+    a.submit(req)
+    if export_after is None:
+        a.run_until_drained()
+        return list(req.out_tokens), None
+    for _ in range(export_after):
+        a.step()
+    check(not req.done, "migration request finished before export")
+    sess = a.export_session(req.rid)
+    check(all(isinstance(x, np.ndarray) for x in sess.cache.values()),
+          "exported session leaves are not host numpy")
+    b = ServeEngine(model, params, max_batch=8, max_seq=2048, decode_chunk=4)
+    b.import_session(sess)
+    b.run_until_drained()
+    return list(req.out_tokens), sess.pos
+
+
+def phase_serve(torch, seed, card):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters in "
+          f"{cfg.compute_dtype}, init {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(seed)
+    max_new, n_req = 64, 16
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               int(rng.integers(64, 1025))),
+                    max_new=max_new) for i in range(n_req)]
+
+    # warm-up request (not timed): cuBLAS handles, allocator
+    warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                       decode_chunk=4)
+    warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:64], max_new=8))
+    warm.run_until_drained()
+
+    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                         decode_chunk=4)
+    lat = []
+    engine.on_step_latency = lat.append
+    for r in reqs:
+        engine.submit(r)
+    rd.launches = fa.launches = 0       # count the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
+
+    check(all(r.done for r in reqs), "not every request finished")
+    check(all(len(r.out_tokens) == max_new for r in reqs),
+          f"token counts {[len(r.out_tokens) for r in reqs]} != {max_new}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+          "a token is outside [0, vocab)")
+    check(engine.stats()["requests_served"] == n_req, "served count")
+    check(launches["flash_attention"] == n_req * cfg.n_layers,
+          f"flash_attention launches {launches['flash_attention']} != "
+          f"{n_req} prefills x {cfg.n_layers} layers")
+    steps = len(lat)
+    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+          f"ragged_decode launches {launches['ragged_decode']} != {steps} "
+          f"steps x 4 tokens x {cfg.n_layers} layers")
+
+    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+    dec_time = sum(lat) * 4
+    ttft = sorted(r.t_first - r.t_admit for r in reqs)
+    ptt_updates = engine.scheduler.ptt.updates
+    print(f"[serve] {n_req} requests x {max_new} tokens, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}: wall {wall:.3f} s, "
+          f"{steps} decode steps")
+    print(f"[serve] decode {dec_tokens / dec_time:.1f} tok/s, p50 per-token "
+          f"step latency {1e3 * float(np.median(lat)):.3f} ms, p50 prefill "
+          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms, ptt.updates {ptt_updates} "
+          f"({card})")
+    print(f"[serve] launches in the run: {launches}")
+
+    phase_profile(torch, np, model, params, reqs, card)
+
+    # a session exported mid-decode continues the same stream elsewhere
+    prompt = min((r.prompt for r in reqs), key=len)
+    ref, _ = _solo_stream(torch, np, model, params, prompt, max_new, None)
+    got, pos = _solo_stream(torch, np, model, params, prompt, max_new, 3)
+    check(got == ref, f"migrated stream differs:\n{got}\n{ref}")
+    print(f"[serve] migration: exported at pos {pos}, {len(got)} tokens "
+          f"identical to the unmigrated stream")
+    return launches
+
+
+def _profile_window(torch, fn, label: str, card: str, top: int = 8):
+    """Run ``fn`` under torch.profiler; print device busy time against
+    wall time and the kernels that took most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and e.device_type is not None \
+                and "cuda" in str(e.device_type).lower():
+            rows.append((dev_us, e.count, e.key))
+    busy = sum(r[0] for r in rows) / 1e6
+    if busy == 0:
+        print(f"[profile] {label}: wall {1e3 * wall:.3f} ms; device time "
+              f"not measured (the profiler saw no CUDA kernels)")
+        return
+    print(f"[profile] {label}: wall {1e3 * wall:.3f} ms, device busy "
+          f"{1e3 * busy:.3f} ms, idle share {1 - busy / wall:.3f} ({card})")
+    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+
+
+def phase_profile(torch, np, model, params, reqs, card):
+    """Where the time goes: one traced window of three decode chunks on a
+    full batch, and one traced whole-prompt prefill of the longest
+    prompt."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                      decode_chunk=4)
+    for r in reqs[:8]:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    eng.step()                        # admits all 8, first chunk
+    _profile_window(torch, lambda: [eng.step() for _ in range(3)],
+                    "3 decode chunks x 4 tokens, 8 slots", card)
+    longest = max((r.prompt for r in reqs), key=len)
+    tokens = torch.as_tensor(longest, device="cuda").long()[None]
+    _profile_window(torch, lambda: model.prefill(params, {"tokens": tokens}),
+                    f"prefill of {len(longest)} tokens", card)
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
+        return 2
+    # the port must run without JAX: make any import of it fail
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    try:
+        card, name, peaks = phase_device(torch)
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.library()
+        print(f"[build] {len(_build.sources())} sources -> "
+              f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
+        stats = phase_kernels(torch, args.seed, peaks)
+        launches = phase_serve(torch, args.seed, card)
+        kernels = kernel_line(stats, launches)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_line(stats: dict, launches: dict) -> list[dict]:
+    kernels = [
+        dict(name="ragged_decode", route="cuda",
+             source="src/repro_torch/kernels/ragged_decode/csrc/"
+                    "ragged_decode.cu",
+             replaces="src/repro/kernels/ragged_decode/kernel.py:82",
+             launches=launches["ragged_decode"], **stats["ragged_decode"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:74",
+             launches=launches["flash_attention"],
+             **stats["flash_attention"]),
+    ]
+    for kr in kernels:
+        check(kr["launches"] > 0, f"{kr['name']} never launched")
+        check(all(math.isfinite(kr[k]) for k in
+                  ("max_abs_err", "ms", "plain_ms", "bound_ms")),
+              f"{kr['name']}: a non-finite number in {kr}")
+    return kernels
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+from . import ops
+from .ops import flash_attention
+from .ref import attention_ref
+
+__all__ = ["ops", "flash_attention", "attention_ref"]

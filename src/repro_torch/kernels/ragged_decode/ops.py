@@ -1,0 +1,76 @@
+"""Public ragged decode-attention op: the CUDA kernel for a CUDA tensor,
+the plain version for a CPU tensor.
+
+Counterpart of ``repro/kernels/ragged_decode/ops.py``.  There is no switch
+and no fallback: a tensor on the card launches
+``csrc/ragged_decode.cu`` or raises.  ``launches`` counts the kernel
+launches of this process; a caller may reset it to 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+from .ref import ragged_decode_ref
+
+launches = 0
+MAX_REP = 16                 # query heads per kv head the kernel takes
+HEAD_DIMS = (64, 128)        # head widths the kernel is built for
+
+
+def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, pos: torch.Tensor
+                            ) -> torch.Tensor:
+    """One-token GQA attention against a ragged batch cache.
+
+    q: (B, Hq, hd); k,v: (B, Smax, Hkv, hd); pos: (B,) int32 index of each
+    slot's newest live token (inclusive; a position past the cache attends
+    all of it).  Returns (B, Hq, hd) float32."""
+    if q.device.type == "cpu":
+        return ragged_decode_ref(q, k_cache, v_cache, pos)
+    return _launch(q, k_cache, v_cache, pos)
+
+
+def _launch(q, k_cache, v_cache, pos):
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_decode runs on cuda or cpu, not {q.device}")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"q must be (B, Hq, hd) and the caches (B, Smax, "
+                         f"Hkv, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}")
+    B, Hq, hd = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
+    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[3] != hd or tuple(pos.shape) != (B,)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
+                         f"pos {tuple(pos.shape)}")
+    if Hq % Hkv or Hq // Hkv > MAX_REP or hd not in HEAD_DIMS:
+        raise ValueError(f"ragged_decode takes Hq/Hkv <= {MAX_REP} and hd in "
+                         f"{HEAD_DIMS}; got Hq={Hq}, Hkv={Hkv}, hd={hd}")
+    if not (k_cache.dtype == v_cache.dtype == q.dtype):
+        raise TypeError(f"q, k, v must share a dtype; got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if pos.dtype != torch.int32:
+        raise TypeError(f"pos must be int32, not {pos.dtype}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    code = _build.dtype_code(q.dtype)
+    lib = _build.library()
+    out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.ragged_decode_launch(
+            code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, Smax, Hkv, Hq // Hkv, hd,
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ragged_decode")
+    launches += 1
+    return out

@@ -1,0 +1,100 @@
+"""Model registry of the port: family -> module with a uniform interface.
+Counterpart of ``repro/models/__init__.py``; only the dense family is
+ported.
+
+Every family module provides::
+
+    init(cfg, generator, device) -> params (an nn.Module)
+    prefill(cfg, p, batch)        -> (last logits, cache)
+    decode(cfg, p, token, pos, cache) -> (logits, cache)   cache in place
+    cache_spec(cfg, B, S)         -> {leaf: (shape, dtype)}
+    cache_logical_axes(cfg), cache_seq_axes(cfg)
+
+On top of those, :class:`Model` exposes the per-slot session helpers and
+``decode_fused``, the serving fast path: a k-step greedy loop over the
+family's single-step ``decode`` with the cache updated in place and the
+argmax on the device.  Where the reference scans ``decode`` inside one jit
+with the cache donated, the port runs a Python loop: the cache tensors are
+written in place, so their ``data_ptr`` never changes across calls, and
+tokens and positions stay on the device until the caller copies the
+``(B, k)`` block of ids to the host once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import sessions, transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable                # (generator, device) -> params
+    prefill: Callable             # (params, batch) -> (logits, cache)
+    decode: Callable              # (params, token (B,1), pos, cache)
+                                  # -> (logits (B,1,V), cache): one step,
+                                  # the per-step legacy path (fused=False)
+    decode_fused: Callable        # (params, token (B,1), pos (B,), cache, k)
+                                  # -> (tokens (B,k), next_token, pos, cache)
+                                  # greedy fast path: cache updated in place,
+                                  # argmax on device, k steps per call
+    cache_spec: Callable
+    cache_logical_axes: Callable
+    cache_seq_axes: Callable
+    extract_session: Callable     # (cache, slot, pos) -> session dict (numpy)
+    insert_session: Callable      # (cache, slot, session) -> cache (in place)
+    prefill_chunk: Callable | None = None   # chunked prefill: ROADMAP A2
+
+
+_FAMILY = {"dense": transformer}
+
+
+def _fused_decode(cfg: ModelConfig, mod) -> Callable:
+    """k greedy decode steps over ``mod.decode``: the cache is written in
+    place, ``argmax`` runs on the device, and nothing is copied to the
+    host.  Returns ``(tokens (B, k), next token (B, 1), pos (B,), cache)``
+    with the same cache tensors it was given."""
+    def fused(params, token, pos, cache, k: int):
+        toks = torch.empty((token.shape[0], k), dtype=torch.long,
+                           device=token.device)
+        for i in range(k):
+            logits, cache = mod.decode(cfg, params, token, pos, cache)
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            toks[:, i] = nxt
+            token = nxt[:, None]
+            pos = pos + 1
+        return toks, token, pos, cache
+
+    return fused
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP A3); the port "
+            f"serves {tuple(_FAMILY)}")
+    mod = _FAMILY[cfg.family]
+    bind = lambda f: (lambda *a, **kw: f(cfg, *a, **kw))
+
+    def extract_session(cache, slot: int, pos: int):
+        return sessions.extract_session(cache, slot, pos,
+                                        mod.cache_logical_axes(cfg),
+                                        mod.cache_seq_axes(cfg))
+
+    def insert_session(cache, slot: int, session):
+        return sessions.insert_session(cache, slot, session,
+                                       mod.cache_logical_axes(cfg))
+
+    return Model(cfg=cfg, init=bind(mod.init), prefill=bind(mod.prefill),
+                 decode=bind(mod.decode),
+                 decode_fused=_fused_decode(cfg, mod),
+                 cache_spec=bind(mod.cache_spec),
+                 cache_logical_axes=bind(mod.cache_logical_axes),
+                 cache_seq_axes=bind(mod.cache_seq_axes),
+                 extract_session=extract_session,
+                 insert_session=insert_session)

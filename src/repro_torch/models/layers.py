@@ -1,0 +1,312 @@
+"""Shared model layers of the port: norms, RoPE, GQA attention, dense MLP,
+embeddings.  Counterpart of ``repro/models/layers.py``, dense pieces only.
+
+Parameters are ``nn.Module``s whose tensor names are the keys of the
+reference's parameter dicts (``wq``, ``w_gate``, ``scale``, ...), so a
+function here reads ``p.wq`` where the reference reads ``p["wq"]``.
+Projection weights keep the reference's ``(in, out)`` layout: ``x @ w``.
+
+Weight dtypes: the reference keeps float32 weights and casts them to the
+compute dtype on every use (``p["wq"].astype(cdt)``).  The port casts once,
+when the module is built, which gives the same values: matrices, biases
+and the embedding are stored in the compute dtype; norm scales and biases
+stay float32, because the reference casts those to float32, not to the
+compute dtype.
+
+Attention: whole-prompt prefill calls the ``flash_attention`` kernel where
+the reference runs its jnp ``blocked_attention`` (or ``_wrapped_causal``);
+both exist only to bound XLA's memory, so neither is ported.  Decode calls
+the ``ragged_decode`` kernel, as the reference does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig, torch_dtype
+from ..kernels.flash_attention import flash_attention
+from ..kernels.ragged_decode import ragged_decode_attention
+
+
+def _weight(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype: torch.dtype, device) -> torch.Tensor:
+    """Uniform(-1/sqrt(in), 1/sqrt(in)) drawn in float32 (the reference's
+    ``param_dtype``), stored in ``dtype``."""
+    scale = 1.0 / math.sqrt(in_dim)
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=device)
+    return w.uniform_(-scale, scale, generator=gen).to(dtype)
+
+
+class Norm(nn.Module):
+    """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``), float32."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor | None = None):
+        super().__init__()
+        self.scale = _weight(scale.float())
+        self.bias = None if bias is None else _weight(bias.float())
+
+
+def norm_init(d: int, kind: str, device) -> Norm:
+    ones = torch.ones(d, device=device)
+    return Norm(ones, torch.zeros(d, device=device)
+                if kind == "layernorm" else None)
+
+
+def apply_norm(p: Norm, x: torch.Tensor, kind: str) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6) * p.scale + p.bias
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6) * p.scale
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def position_vector(pos, batch: int, device) -> torch.Tensor:
+    """Normalize a decode position — scalar (shared) or per-slot vector — to
+    an int32 ``(batch,)`` vector on ``device``."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1)
+    if pos.shape[0] == batch:
+        return pos
+    return pos.expand(batch).contiguous()
+
+
+def rope_frequencies(hd: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
+    reference's formula: the head splits into halves, f32 throughout."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)               # (hd/2,)
+    ang = positions[..., None].float() * freqs                  # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """``wq``/``wk``/``wv``/``wo`` (in, out) in the compute dtype, optional
+    ``bq``/``bk``/``bv`` (``qkv_bias``) and ``q_norm``/``k_norm``
+    (``qk_norm``, float32)."""
+
+    def __init__(self, cfg: ModelConfig, tensors: dict):
+        super().__init__()
+        cdt = torch_dtype(cfg.compute_dtype)
+        for name in ("wq", "wk", "wv", "wo"):
+            setattr(self, name, _weight(tensors[name].to(cdt)))
+        for name in ("bq", "bk", "bv"):
+            setattr(self, name, _weight(tensors[name].to(cdt))
+                    if cfg.qkv_bias else None)
+        for name in ("q_norm", "k_norm"):
+            setattr(self, name, _weight(tensors[name].float())
+                    if cfg.qk_norm else None)
+
+
+def attention_init(cfg: ModelConfig, gen: torch.Generator,
+                   device) -> Attention:
+    D, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    cdt = torch_dtype(cfg.compute_dtype)
+    t = {"wq": dense_init(gen, D, Hq * hd, cdt, device),
+         "wk": dense_init(gen, D, Hkv * hd, cdt, device),
+         "wv": dense_init(gen, D, Hkv * hd, cdt, device),
+         "wo": dense_init(gen, Hq * hd, D, cdt, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", Hq), ("bk", Hkv), ("bv", Hkv)):
+            t[name] = torch.zeros(n * hd, dtype=cdt, device=device)
+    if cfg.qk_norm:
+        t["q_norm"] = torch.ones(hd, device=device)
+        t["k_norm"] = torch.ones(hd, device=device)
+    return Attention(cfg, t)
+
+
+def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+         kv_src: torch.Tensor, positions, kv_positions, rope: bool):
+    B = x.shape[0]
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = x @ p.wq
+    k = kv_src @ p.wk
+    v = kv_src @ p.wv
+    if cfg.qkv_bias:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    q = q.reshape(B, -1, Hq, hd)
+    k = k.reshape(B, -1, Hkv, hd)
+    v = v.reshape(B, -1, Hkv, hd)
+    if cfg.qk_norm:
+        q = _rms_head(q, p.q_norm)
+        k = _rms_head(k, p.k_norm)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _rms_head(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale).to(x.dtype)
+
+
+def decode_attention(cfg: ModelConfig, q: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos) -> torch.Tensor:
+    """One-token attention against a ragged batch cache.  q: (B, 1, Hq,
+    hd); caches: (B, Smax, Hkv, hd); ``pos`` a scalar or a per-slot (B,)
+    vector.  The math lives in :mod:`repro_torch.kernels.ragged_decode`:
+    the CUDA kernel on the card, its plain version on the CPU."""
+    B, _, Hq, hd = q.shape
+    pos_vec = position_vector(pos, B, q.device)
+    out = ragged_decode_attention(q.reshape(B, Hq, hd), k_cache, v_cache,
+                                  pos_vec)
+    return out.reshape(B, 1, Hq * hd).to(q.dtype)
+
+
+def attention_decode_inplace(cfg: ModelConfig, p: Attention,
+                             x: torch.Tensor, kfull: torch.Tensor,
+                             vfull: torch.Tensor, layer_idx: int, pos,
+                             rope: bool = True) -> torch.Tensor:
+    """One-token attention that writes the token's K/V into the STACKED
+    (L, B, Smax, Hkv, hd) caches in place and returns the attention output.
+
+    ``pos`` may be a scalar or a per-slot ``(B,)`` vector.  A position
+    past the cache writes the cache's last row, where the reference's
+    out-of-bounds scatter drops the write.  Only the surplus steps of a
+    decode chunk that runs past ``max_seq`` do that: the engine discards
+    their tokens, frees the slot, and the slot's next occupant overwrites
+    all of it, so the difference is never read."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = x.to(cdt)
+    B = x.shape[0]
+    pos_vec = position_vector(pos, B, x.device)
+    positions = pos_vec[:, None]
+    q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
+    batch_ix = torch.arange(B, device=x.device)
+    row = pos_vec.clamp(max=kfull.shape[2] - 1).long()
+    kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Smax, Hkv, hd)
+    # slot indices are distinct: nothing is written twice
+    kl[batch_ix, row] = k[:, 0].to(kl.dtype)
+    vl[batch_ix, row] = v[:, 0].to(vl.dtype)
+    out = decode_attention(cfg, q, kl, vl, pos_vec)
+    return out @ p.wo
+
+
+def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
+                    positions: torch.Tensor, rope: bool = True,
+                    causal: bool | None = None):
+    """Full-sequence self-attention (the reference's ``mode="full"``
+    without cross-attention).  Returns (out, k, v); k, v are (B, S, Hkv,
+    hd) for the prefill cache."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = x.to(cdt)
+    causal = cfg.causal if causal is None else causal
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
+    # (B, S, H, hd) -> (B, H, S, hd) views; the kernel reads them by stride
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p.wo, k, v
+
+
+# ---------------------------------------------------------------------------
+# dense MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """silu: ``w_gate``, ``w_up``, ``w_down``; gelu: ``w_in``, ``b_in``,
+    ``w_out``, ``b_out``.  All in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, tensors: dict):
+        super().__init__()
+        cdt = torch_dtype(cfg.compute_dtype)
+        for name, t in tensors.items():
+            setattr(self, name, _weight(t.to(cdt)))
+
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator, device) -> MLP:
+    D, Fd = cfg.d_model, cfg.d_ff
+    cdt = torch_dtype(cfg.compute_dtype)
+    if cfg.act == "silu":
+        t = {"w_gate": dense_init(gen, D, Fd, cdt, device),
+             "w_up": dense_init(gen, D, Fd, cdt, device),
+             "w_down": dense_init(gen, Fd, D, cdt, device)}
+    else:
+        t = {"w_in": dense_init(gen, D, Fd, cdt, device),
+             "b_in": torch.zeros(Fd, dtype=cdt, device=device),
+             "w_out": dense_init(gen, Fd, D, cdt, device),
+             "b_out": torch.zeros(D, dtype=cdt, device=device)}
+    return MLP(cfg, t)
+
+
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch_dtype(cfg.compute_dtype))
+    if cfg.act == "silu":
+        return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p.w_in + p.b_in, approximate="tanh")
+    return h @ p.w_out + p.b_out
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """``embed`` (vocab, d_model) and, untied, ``lm_head`` (d_model, vocab),
+    in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
+                 lm_head: torch.Tensor | None = None):
+        super().__init__()
+        cdt = torch_dtype(cfg.compute_dtype)
+        self.embed = _weight(embed.to(cdt))
+        self.lm_head = None if cfg.tie_embeddings else _weight(lm_head.to(cdt))
+
+
+def embedding_init(cfg: ModelConfig, gen: torch.Generator,
+                   device) -> Embedding:
+    cdt = torch_dtype(cfg.compute_dtype)
+    embed = torch.empty((cfg.vocab, cfg.d_model), device=device)
+    embed = (embed.normal_(generator=gen) * 0.02).to(cdt)
+    lm = None
+    if not cfg.tie_embeddings:
+        lm = dense_init(gen, cfg.d_model, cfg.vocab, cdt, device)
+    return Embedding(cfg, embed, lm)
+
+
+def embed_tokens(cfg: ModelConfig, p: Embedding,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return p.embed[tokens.long()]
+
+
+def lm_head(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    w = p.embed.T if cfg.tie_embeddings else p.lm_head
+    return x @ w

@@ -1,0 +1,146 @@
+"""Dense decoder-only transformer (qwen2 / qwen2.5 / starcoder2 / smollm):
+the port's counterpart of ``repro/models/transformer.py``.
+
+Layers are a Python loop over per-layer ``nn.Module``s where the reference
+scans stacked layer parameters (``lax.scan``) under ``jax.checkpoint``;
+inference needs no rematerialization.  The decode caches stay one stacked
+``(L, B, Smax, Hkv, hd)`` tensor per K and V, written in place.
+
+``forward`` (training) and ``prefill_chunk`` (chunked prefill) are not
+ported yet (ROADMAP A8 and A2).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig, torch_dtype
+from ..device import resolve_device
+from . import layers as L
+
+
+class Block(nn.Module):
+    """One decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, ln1: L.Norm, attn: L.Attention, ln2: L.Norm,
+                 mlp: L.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class Transformer(nn.Module):
+    """The parameters of a dense model: ``tok`` (embedding and head),
+    ``layers`` (one :class:`Block` per layer) and ``ln_f``."""
+
+    def __init__(self, tok: L.Embedding, layers: list[Block], ln_f: L.Norm):
+        super().__init__()
+        self.tok = tok
+        self.layers = nn.ModuleList(layers)
+        self.ln_f = ln_f
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok.embed.device
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _layer_init(cfg: ModelConfig, gen: torch.Generator, device) -> Block:
+    return Block(L.norm_init(cfg.d_model, cfg.norm, device),
+                 L.attention_init(cfg, gen, device),
+                 L.norm_init(cfg.d_model, cfg.norm, device),
+                 L.mlp_init(cfg, gen, device))
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device=None) -> Transformer:
+    """Random weights from the reference's distributions (uniform
+    +-1/sqrt(in), embedding N(0, 1) * 0.02, zero biases, unit norms), drawn
+    on ``device`` (the card unless the caller passes one) from
+    ``generator`` (which must live on that device).  Not the reference's
+    numbers: parity tests carry weights over with
+    :func:`repro_torch.models.convert.params_from_numpy`."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only 'dense' is ported (ROADMAP A3)")
+    device = resolve_device(device)
+    tok = L.embedding_init(cfg, generator, device)
+    layers = [_layer_init(cfg, generator, device)
+              for _ in range(cfg.n_layers)]
+    return Transformer(tok, layers, L.norm_init(cfg.d_model, cfg.norm,
+                                                device))
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _block_prefill(cfg: ModelConfig, lp: Block, x, positions):
+    h = L.apply_norm(lp.ln1, x, cfg.norm)
+    a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions)
+    x = x + a
+    h = L.apply_norm(lp.ln2, x, cfg.norm)
+    x = x + L.mlp_apply(cfg, lp.mlp, h)
+    return x, (k, v)
+
+
+def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
+                  layer_idx: int, pos):
+    h = L.apply_norm(lp.ln1, x, cfg.norm)
+    x = x + L.attention_decode_inplace(cfg, lp.attn, h, kfull, vfull,
+                                       layer_idx, pos)
+    h = L.apply_norm(lp.ln2, x, cfg.norm)
+    return x + L.mlp_apply(cfg, lp.mlp, h)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, p: Transformer, batch: dict):
+    """Forward over whole prompts + KV caches; returns (last-token logits
+    (B, 1, V), cache {"k", "v"}: (L, B, S, Hkv, hd))."""
+    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    ks, vs = [], []
+    for lp in p.layers:
+        x, (k, v) = _block_prefill(cfg, lp, x, positions)
+        ks.append(k)
+        vs.append(v)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    logits = L.lm_head(cfg, p.tok, x[:, -1:])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode(cfg: ModelConfig, p: Transformer, token, pos, cache: dict):
+    """One decode step against (L, B, Smax, Hkv, hd) caches, updated in
+    place (the returned cache is the same dict of the same tensors).
+    ``token``: (B, 1) ids; ``pos``: a scalar or a per-slot (B,) vector —
+    ragged batches decode each slot at its own position."""
+    x = L.embed_tokens(cfg, p.tok, token)
+    pos = L.position_vector(pos, x.shape[0], x.device)
+    for i, lp in enumerate(p.layers):
+        x = _block_decode(cfg, lp, x, cache["k"], cache["v"], i, pos)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x), cache
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """{leaf name: (shape, dtype)} of the decode cache."""
+    shp = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    dt = torch_dtype(cfg.compute_dtype)
+    return {"k": (shp, dt), "v": (shp, dt)}
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    return {"k": (None, "batch", "seq_mp", None, None),
+            "v": (None, "batch", "seq_mp", None, None)}
+
+
+def cache_seq_axes(cfg: ModelConfig):
+    """Axis index (in the full cache leaf) that grows with decode position;
+    None = fixed-size state.  Used by session extract/insert."""
+    return {"k": 2, "v": 2}

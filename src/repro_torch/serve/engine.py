@@ -1,0 +1,452 @@
+"""Ragged continuous-batching serving engine with serializable KV sessions:
+the port's counterpart of ``repro/serve/engine.py``, with the same
+constructor and surface.
+
+* requests arrive with prompt tokens; **any free slot admits any queued
+  prompt** — prefill runs per request (whole prompt, through the
+  ``flash_attention`` kernel on the card) and its KV cache is written into
+  the slot's rows of the batch cache (``Model.insert_session``);
+* every engine step decodes a **chunk of ``decode_chunk`` tokens** for the
+  whole active batch at **per-slot positions** through
+  ``Model.decode_fused``: the cache is updated in place, greedy sampling
+  runs on the device, and ``cur_token`` / ``pos`` stay on the device
+  between chunks — the only host transfer per step is the ``(B, k)`` block
+  of token ids.  A slot that reaches ``max_new`` (or the cache edge)
+  mid-chunk keeps only its tokens up to that point.  ``fused=False`` keeps
+  the legacy per-token path (``Model.decode`` + device argmax);
+* finished sequences free their slots immediately;
+* a live request can leave the engine as a :class:`Session`
+  (``export_session``) and resume on another engine (``import_session``);
+* the :class:`ElasticServeScheduler` is consulted per prefill (critical)
+  and per decode chunk (non-critical).  Its PTT learns **device** time:
+  every latency sample is taken after the host sync that ends the work
+  (the ``argmax`` of a prefill, the ``(B, k)`` copy of a decode chunk),
+  never after the enqueue alone.
+
+Not ported yet, and raising ``NotImplementedError``: chunked prefill
+(``prefill_chunk_tokens > 0``, ``export_prefill``, partial-session import;
+ROADMAP A2) and the session wire format (``export_session_wire``,
+``import_session_wire``; ROADMAP A4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..models import Model
+from ..obs import NULL_TRACER
+from .scheduler import ElasticServeScheduler
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (prompt_len,)
+    max_new: int
+    extras: dict = dataclasses.field(default_factory=dict)
+                                 # extra prefill inputs without the batch
+                                 # axis (e.g. vlm "image_embeds")
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_first: float | None = None   # wall time the first token was produced
+    t_admit: float | None = None   # wall time the engine started prefill
+
+
+@dataclasses.dataclass
+class Session:
+    """A live request frozen for transport: the Request object itself (so
+    the client's handle keeps accumulating tokens after migration), its
+    decode position, the next input token, and its cache slice as host
+    numpy arrays (``Model.extract_session``)."""
+    req: Request
+    pos: int
+    cur_token: int
+    cache: dict
+    trace: dict | None = None    # trace context ({"trace_id": ...})
+    prefilled: int | None = None  # None = prefill complete (a decode
+                                  # session); else a mid-prefill export
+                                  # (chunked prefill, ROADMAP A2)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params, max_batch: int, max_seq: int,
+                 num_groups: int = 1, decode_chunk: int = 1,
+                 fused: bool = True, role: str = "both",
+                 prefill_chunk_tokens: int = 0):
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"unknown role {role!r}")
+        if prefill_chunk_tokens > 0:
+            raise _not_ported("chunked prefill (prefill_chunk_tokens > 0)",
+                              "A2")
+        self.model = model
+        self.params = params
+        self.device = params.device
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.decode_chunk = max(int(decode_chunk), 1)
+        self.fused = fused
+        self.role = role
+        self.prefill_chunk_tokens = 0
+        self.crashed = False
+        self.scheduler = ElasticServeScheduler(num_groups)
+        self.queue: deque[Request] = deque()
+        self.sessions_in: deque[Session] = deque()   # imported, not yet slotted
+        self.active: list[Request | None] = [None] * max_batch
+        self.cache = None
+        self.pos = np.zeros(max_batch, dtype=np.int32)
+        self.cur_token = np.zeros((max_batch, 1), dtype=np.int32)
+        # device-resident mirrors of cur_token/pos: they ride the decode
+        # outputs between chunks and are re-uploaded from the host arrays
+        # only after a slot-changing event (admission, finish, export)
+        # marks them dirty
+        self._dev_tok = None
+        self._dev_pos = None
+        self._dev_dirty = True
+        # fleet surface: called with each step's decode latency per token
+        # (elapsed / decode_chunk); steps that run no decode leave it
+        # uncalled
+        self.on_step_latency = None
+        self.tracer = NULL_TRACER
+        self.metrics = None
+        self.obs_name = "engine"
+        self._served = 0         # requests finished on this engine
+        self._exports = 0        # sessions migrated out
+        self._imports = 0        # sessions migrated in
+        self._m_served = self._m_tokens = None
+        self._m_exports = self._m_imports = None
+        self._h_prefill = self._h_step = None
+        self._g_util = self._g_queue = None
+
+    # -- observability -----------------------------------------------------
+    def attach_obs(self, tracer=None, metrics=None,
+                   name: str | None = None) -> None:
+        """Attach a :class:`~repro_torch.obs.SpanTracer` and/or a metric
+        registry (anything with the reference ``MetricRegistry``'s
+        ``counter`` / ``histogram`` / ``gauge``).  ``name`` labels this
+        engine's series and is its span track.  Metric children are
+        resolved once here so the decode loop pays a float add."""
+        if name is not None:
+            self.obs_name = name
+        if tracer is not None:
+            self.tracer = tracer
+        if metrics is not None:
+            self.metrics = metrics
+            e = self.obs_name
+            self._m_served = metrics.counter(
+                "serve_requests_served_total",
+                "Requests finished on this engine", engine=e)
+            self._m_tokens = metrics.counter(
+                "serve_decode_tokens_total",
+                "Tokens decoded (batch slots x chunk)", engine=e)
+            self._m_exports = metrics.counter(
+                "serve_sessions_exported_total",
+                "Live sessions migrated out", engine=e)
+            self._m_imports = metrics.counter(
+                "serve_sessions_imported_total",
+                "Live sessions migrated in", engine=e)
+            self._h_prefill = metrics.histogram(
+                "serve_prefill_seconds", "Per-request prefill wall time",
+                engine=e)
+            self._h_step = metrics.histogram(
+                "serve_decode_step_seconds",
+                "Decode latency per token (elapsed / chunk)", engine=e)
+            self._g_util = metrics.gauge(
+                "serve_utilization",
+                "Fraction of batch slots occupied", engine=e)
+            self._g_queue = metrics.gauge(
+                "serve_queue_depth",
+                "Requests queued but not slotted", engine=e)
+
+    def stats(self) -> dict:
+        """Counter facade with the reference's unified key names plus
+        engine-local detail."""
+        return {
+            "requests_served": self._served,
+            "requests_shed": 0,          # engines never shed; the router does
+            "sessions_migrated": self._exports + self._imports,
+            "queue_depth": self.pending(),
+            "sessions_exported": self._exports,
+            "sessions_imported": self._imports,
+            "active": self.active_count(),
+            "utilization": self.utilization(),
+            "role": self.role,
+            "crashed": self.crashed,
+            "prefilling": 0,             # chunked prefill: ROADMAP A2
+        }
+
+    # -- admission ---------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if req.extras:
+            raise _not_ported("prefill extras (non-dense families)", "A3")
+        self.queue.append(req)
+
+    # -- crash / restart (fault injection surface) -------------------------
+    def crash(self) -> None:
+        """Simulate process death: queued requests, imported sessions, the
+        batch cache and every active slot are lost.  Idempotent."""
+        self.crashed = True
+        self.queue.clear()
+        self.sessions_in.clear()
+        self.active = [None] * self.max_batch
+        self.cache = None
+        self.pos[:] = 0
+        self.cur_token[:] = 0
+        self._dev_tok = None
+        self._dev_pos = None
+        self._dev_dirty = True
+
+    def restart(self) -> None:
+        """Bring a crashed engine back empty (a replacement process with
+        the same weights); work submitted while it was dead is dropped."""
+        self.queue.clear()
+        self.sessions_in.clear()
+        self.crashed = False
+
+    # -- non-blocking fleet surface ----------------------------------------
+    def pending(self) -> int:
+        """Requests queued (fresh or imported sessions) but not slotted."""
+        return len(self.queue) + len(self.sessions_in)
+
+    def active_count(self) -> int:
+        return sum(r is not None for r in self.active)
+
+    def utilization(self) -> float:
+        """Fraction of batch slots occupied (0.0 = idle replica)."""
+        return self.active_count() / self.max_batch
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.active) if r is None]
+
+    def _ensure_cache(self) -> None:
+        if self.cache is None:
+            spec = self.model.cache_spec(self.max_batch, self.max_seq)
+            self.cache = {name: torch.zeros(shape, dtype=dt,
+                                            device=self.device)
+                          for name, (shape, dt) in spec.items()}
+
+    def _slot_in(self, slot: int, req: Request, next_tok: int,
+                 cache) -> None:
+        """Install a freshly prefilled request into a batch slot."""
+        self._ensure_cache()
+        self.model.insert_session(self.cache, slot, cache)
+        self.active[slot] = req
+        self.pos[slot] = len(req.prompt)
+        self.cur_token[slot, 0] = next_tok
+        self._dev_dirty = True
+
+    def _complete_prefill(self, req: Request, next_tok: int) -> bool:
+        """Prefill epilogue: stamp the first token; True when that
+        finished the request (no slot needed)."""
+        req.out_tokens.append(next_tok)
+        req.t_first = time.perf_counter()
+        if len(req.out_tokens) >= req.max_new:
+            req.done = True
+            self._finish(req)
+            return True
+        return False
+
+    def _admit(self) -> None:
+        # ragged continuous batching: any free slot takes any queued prompt
+        # (imported sessions first: their prefill was paid elsewhere)
+        slots = self._free_slots()
+        while slots and self.sessions_in:
+            self._install_session(slots.pop(0), self.sessions_in.popleft())
+        while self.queue and slots:
+            req = self.queue.popleft()
+            t0 = time.perf_counter()
+            req.t_admit = t0
+            d = self.scheduler.schedule_prefill(len(req.prompt))
+            tokens = torch.as_tensor(np.asarray(req.prompt),
+                                     device=self.device).long()[None, :]
+            logits, cache = self.model.prefill(self.params,
+                                               {"tokens": tokens})
+            # the prefill's ONE host sync; the PTT sample is taken after it
+            next_tok = int(torch.argmax(logits[0, -1]))
+            prefill_dur = time.perf_counter() - t0
+            self.scheduler.record(d, prefill_dur, time.perf_counter())
+            if self.tracer.enabled:
+                tid = self.tracer.trace_for(req.rid)
+                if tid is not None:
+                    self.tracer.complete(
+                        "prefill", tid, self.obs_name,
+                        ts=t0, dur=prefill_dur, prompt_len=len(req.prompt))
+            if self._h_prefill is not None:
+                self._h_prefill.observe(prefill_dur)
+            if self._complete_prefill(req, next_tok):
+                continue             # finished at prefill: no slot used
+            self._slot_in(slots.pop(0), req, next_tok, cache)
+
+    def _finish(self, req: Request) -> None:
+        """Bookkeep one finished request (counter + optional instant)."""
+        self._served += 1
+        if self._m_served is not None:
+            self._m_served.inc()
+        if self.tracer.enabled:
+            self.tracer.instant("finish", self.tracer.trace_for(req.rid),
+                                self.obs_name, tokens=len(req.out_tokens))
+
+    # -- session migration -------------------------------------------------
+    def export_session(self, rid: int) -> Session:
+        """Freeze an active request into a transportable Session and free
+        its slot.  Raises KeyError if ``rid`` is not active."""
+        for slot, req in enumerate(self.active):
+            if req is not None and req.rid == rid:
+                pos = int(self.pos[slot])
+                sess = Session(
+                    req=req, pos=pos, cur_token=int(self.cur_token[slot, 0]),
+                    cache=self.model.extract_session(self.cache, slot, pos))
+                self.active[slot] = None
+                self.pos[slot] = 0
+                self.cur_token[slot, 0] = 0
+                self._dev_dirty = True
+                self._exports += 1
+                if self._m_exports is not None:
+                    self._m_exports.inc()
+                if self.tracer.enabled:
+                    tid = self.tracer.trace_for(rid)
+                    if tid is not None:      # sampled-out rids carry none
+                        sess.trace = {"trace_id": tid}
+                        self.tracer.instant("migrate-out", tid,
+                                            self.obs_name, pos=pos)
+                return sess
+        raise KeyError(f"rid {rid} is not active on this engine")
+
+    def export_prefill(self, rid: int) -> Session:
+        raise _not_ported("export_prefill (chunked prefill)", "A2")
+
+    def can_hold(self, pos: int, remaining: int) -> bool:
+        """Whether a session at ``pos`` with ``remaining`` tokens to decode
+        fits this engine without truncation."""
+        return not self.crashed and pos + remaining <= self.max_seq - 1
+
+    def import_session(self, sess: Session, strict: bool = True) -> None:
+        """Accept a migrated session; it resumes decoding at the next
+        ``step`` with a free slot (ahead of fresh prompts).  ``strict``
+        also requires the engine to hold the session's remaining token
+        budget."""
+        if self.crashed:
+            raise ValueError("engine is crashed; restart() before imports")
+        if sess.prefilled is not None:
+            raise _not_ported("importing a mid-prefill session", "A2")
+        if sess.pos >= self.max_seq - 1:
+            raise ValueError(
+                f"session at pos {sess.pos} does not fit max_seq "
+                f"{self.max_seq}")
+        remaining = max(sess.req.max_new - len(sess.req.out_tokens), 0)
+        if strict and not self.can_hold(sess.pos, remaining):
+            raise ValueError(
+                f"session at pos {sess.pos} with {remaining} tokens to go "
+                f"would truncate at max_seq {self.max_seq}")
+        self._imports += 1
+        if self._m_imports is not None:
+            self._m_imports.inc()
+        if sess.trace is not None:
+            self.tracer.adopt(sess.req.rid, sess.trace["trace_id"])
+        if self.tracer.enabled:
+            self.tracer.instant("migrate-in",
+                                self.tracer.trace_for(sess.req.rid),
+                                self.obs_name, pos=sess.pos)
+        self.sessions_in.append(sess)
+
+    def export_session_wire(self, rid: int) -> bytes:
+        raise _not_ported("the session wire format", "A4")
+
+    def import_session_wire(self, data: bytes, strict: bool = True) -> None:
+        raise _not_ported("the session wire format", "A4")
+
+    def _install_session(self, slot: int, sess: Session) -> None:
+        self._ensure_cache()
+        self.model.insert_session(self.cache, slot, sess.cache)
+        self.active[slot] = sess.req
+        self.pos[slot] = sess.pos
+        self.cur_token[slot, 0] = sess.cur_token
+        self._dev_dirty = True
+
+    # -- decode loop ---------------------------------------------------------
+    def step(self) -> int:
+        """One engine iteration: admit + decode one ``decode_chunk``-token
+        chunk for the batch at per-slot positions.  Returns the number of
+        active sequences.  ``on_step_latency`` receives the decode latency
+        per token (elapsed / chunk)."""
+        if self.crashed:
+            return 0                 # a dead process steps nothing
+        self._admit()
+        n_active = self.active_count()
+        if self._g_util is not None:
+            self._g_util.set(n_active / self.max_batch)
+            self._g_queue.set(float(self.pending()))
+        if n_active == 0:
+            return 0
+        d = self.scheduler.schedule_decode(group=0)
+        t0 = time.perf_counter()
+        if self._dev_dirty or self._dev_tok is None:
+            self._dev_tok = torch.tensor(self.cur_token, dtype=torch.long,
+                                         device=self.device)
+            self._dev_pos = torch.tensor(self.pos, device=self.device)
+            self._dev_dirty = False
+        if self.fused:
+            k = self.decode_chunk
+            toks_dev, self._dev_tok, self._dev_pos, self.cache = (
+                self.model.decode_fused(self.params, self._dev_tok,
+                                        self._dev_pos, self.cache, k))
+        else:
+            # legacy per-step path: argmax on the device, (B, 1) ids home
+            k = 1
+            logits, self.cache = self.model.decode(
+                self.params, self._dev_tok, self._dev_pos, self.cache)
+            toks_dev = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            self._dev_tok = toks_dev
+            self._dev_pos = self._dev_pos + 1
+        # the chunk's ONE host sync: a (B, k) block of token ids; the PTT
+        # sample below is taken after it, so it measures device time
+        toks = toks_dev.cpu().numpy()
+        decode_elapsed = time.perf_counter() - t0
+        self.scheduler.record(d, decode_elapsed, time.perf_counter())
+        if self.tracer.enabled:
+            for req in self.active:
+                if req is not None:
+                    self.tracer.complete(
+                        "decode-chunk", self.tracer.trace_for(req.rid),
+                        self.obs_name, ts=t0, dur=decode_elapsed, tokens=k)
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            for j in range(k):
+                req.out_tokens.append(int(toks[i, j]))
+                self.pos[i] += 1
+                self.cur_token[i, 0] = int(toks[i, j])
+                if (len(req.out_tokens) >= req.max_new
+                        or self.pos[i] >= self.max_seq - 1):
+                    req.done = True              # surplus chunk tokens (j+1
+                    self.active[i] = None        # onward) are truncated
+                    self.pos[i] = 0
+                    self.cur_token[i, 0] = 0
+                    self._dev_dirty = True
+                    self._finish(req)
+                    break
+        if any(r is None for r in self.active):
+            # keep idle slots' device pos pinned at 0, so an idle slot's
+            # throwaway decode never sweeps more of the cache than one row
+            self._dev_dirty = True
+        per_token = decode_elapsed / k
+        if self._h_step is not None:
+            self._h_step.observe(per_token)
+            self._m_tokens.inc(n_active * k)
+        if self.on_step_latency is not None:
+            self.on_step_latency(per_token)
+        return n_active
+
+    def run_until_drained(self, max_steps: int = 10000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.pending():
+                return
