@@ -18,10 +18,23 @@ Phases, in order; any failure exits non-zero before the last line:
 4. serve   — qwen2-0.5b at full width, random weights from the seed,
              through ``ServeEngine``: 16 requests with prompts of 64-1024
              tokens and 64 new tokens each, over 8 slots in chunks of 4;
-             every request must finish with 64 in-vocabulary tokens, both
-             kernels must have launched during the run, and a session
-             exported mid-decode and imported into a second engine must
-             continue the same token stream as the unmigrated request.
+             every request must finish with 64 in-vocabulary tokens, the
+             decode and whole-prompt prefill kernels must have launched
+             during the run, and a session exported mid-decode and
+             imported into a second engine must continue the same token
+             stream as the unmigrated request;
+5. chunked — the same 16 prompts through a second engine that prefills in
+             chunks of 256 tokens (the ``ragged_prefill`` kernel), 16 new
+             tokens each: every request finishes in vocabulary, and the
+             chunk, decode and whole-prompt kernels launched exactly as
+             often as the run's chunks and decode steps say; a prefill
+             exported after 2 of 4 chunks and a ``role="prefill"`` engine
+             handing its sessions to a ``role="decode"`` engine both
+             continue the unmigrated chunked stream token for token; and
+             the chunked and whole-prompt prefills of the longest prompt
+             agree on its last-token logits within a stated limit.
+
+Each serve phase prints its peak device memory.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX or of the JAX
@@ -195,10 +208,65 @@ def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol):
                 bound_by=by, library_ms=lib_ms)
 
 
+def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
+                        qlens, tol, timed):
+    """One chunk of T=256 tokens per slot at qwen2-0.5b's heads; ``timed``
+    also gives the kernel / plain / SDPA times and the bound."""
+    B, T, Hq, Hkv, hd = len(starts), 256, 14, 2, 64
+    dev = "cuda"
+    q = torch.randn(B, T, Hq, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    qlen = torch.tensor(qlens, dtype=torch.int32, device=dev)
+    launches0 = rp.launches
+    out = rp.ragged_prefill_attention(q, k, v, start, qlen)
+    ref = rp.ragged_prefill_ref(q, k, v, start, qlen)
+    torch.cuda.synchronize()
+    rp.launches = launches0            # comparison launches do not count
+    check(bool(torch.isfinite(out).all()), "ragged_prefill: non-finite")
+    err = (out - ref).abs().max().item()
+    label = (f"ragged_prefill {str(dt)[6:]} B={B} T={T} Smax={Smax} "
+             f"start={starts} qlen={qlens}")
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
+    for b, n in enumerate(qlens):
+        check(not bool(out[b, n:].any()), f"{label}: padded rows of slot "
+                                          f"{b} are not exact zeros")
+    print(f"[kernel] {label}: max_abs_err={err:.3g} (limit {tol}), padded "
+          f"rows exact zeros")
+    if not timed:
+        return dict(max_abs_err=err)
+    ms = time_ms(torch, lambda: rp.ragged_prefill_attention(
+        q, k, v, start, qlen), flush)
+    plain_ms = time_ms(torch, lambda: rp.ragged_prefill_ref(
+        q, k, v, start, qlen), flush)
+    # library yardstick: one SDPA call with a (B, 1, T, Smax) causal mask
+    qpos = start[:, None].long() + torch.arange(T, device=dev)[None, :]
+    mask = (torch.arange(Smax, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush)
+    rp.launches = launches0
+    es = q.element_size()
+    rows = sum(s + n for s, n in zip(starts, qlens) if n > 0)
+    nbytes = (q.numel() * es + 2 * rows * Hkv * hd * es + 8 * B
+              + out.numel() * 4)
+    pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, qlens))
+    nops = 4 * Hq * hd * pairs
+    bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
+    print(f"[kernel] {label} Hq={Hq} Hkv={Hkv} hd={hd}: ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
 def phase_kernels(torch, seed, peaks):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
@@ -219,12 +287,26 @@ def phase_kernels(torch, seed, peaks):
                            False, 2e-2),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
+    # the serving chunk (a 4th chunk of 256 tokens), a first chunk with a
+    # ragged tail, mixed slots (one empty, one ending at the cache edge),
+    # and float32
+    rp_cases = [ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [768], [256], 2e-2, True),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [0], [97], 2e-2, False),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [0, 512, 1948, 1200],
+                                    [256, 0, 100, 37], 2e-2, False),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
+                                    1000, [300, 0], [256, 5], 1e-4, False)]
     del flush
     # the line's numbers: the first case of each, the serving path's shape
     return {"ragged_decode": dict(rd_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in rd_cases if c is not rd_cases[2])),
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in fa_cases if c is not fa_cases[3]))}
+                c["max_abs_err"] for c in fa_cases if c is not fa_cases[3])),
+            "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
+                c["max_abs_err"] for c in rp_cases[:3]))}
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +368,7 @@ def phase_serve(torch, seed, card):
                        decode_chunk=4)
     warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:64], max_new=8))
     warm.run_until_drained()
+    del warm                  # its idle batch cache must not count in the peak
 
     engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
                          decode_chunk=4)
@@ -295,10 +378,12 @@ def phase_serve(torch, seed, card):
         engine.submit(r)
     rd.launches = fa.launches = 0       # count the main path's run only
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
 
     check(all(r.done for r in reqs), "not every request finished")
@@ -328,6 +413,7 @@ def phase_serve(torch, seed, card):
           f"{1e3 * ttft[len(ttft) // 2]:.3f} ms, ptt.updates {ptt_updates} "
           f"({card})")
     print(f"[serve] launches in the run: {launches}")
+    print(f"[serve] peak device memory {peak} bytes ({card})")
 
     phase_profile(torch, np, model, params, reqs, card)
 
@@ -338,6 +424,176 @@ def phase_serve(torch, seed, card):
     check(got == ref, f"migrated stream differs:\n{got}\n{ref}")
     print(f"[serve] migration: exported at pos {pos}, {len(got)} tokens "
           f"identical to the unmigrated stream")
+    return launches, model, params, reqs
+
+
+# ---------------------------------------------------------------------------
+# 5. chunked prefill
+# ---------------------------------------------------------------------------
+
+CHUNK = 256
+CHUNK_NEW = 16
+# last-token logits of the whole-prompt and the chunked prefill, bf16: both
+# paths round the residual stream and every projection to 8 significant
+# bits (2^-9 relative), but at different places (other GEMM shapes, the
+# flash kernel's bf16 output against the chunk kernel's f32 one); over 24
+# layers and ~8 roundings each, differences that add like a random walk
+# reach sqrt(192) * 2^-9 = 2.7 % of the logits' scale.  The limit is twice
+# that: 2^-4 of the largest logit magnitude.
+LOGIT_REL_LIMIT = 2.0 ** -4
+
+
+def _chunked_engine(model, params, **kw):
+    from repro_torch.serve import ServeEngine
+    return ServeEngine(model, params, max_batch=8, max_seq=2048,
+                       decode_chunk=4, prefill_chunk_tokens=CHUNK, **kw)
+
+
+def _chunked_solo(model, params, prompt, mode):
+    """One request alone on 8-slot chunked engines, to the end: unmigrated
+    (``mode`` None), exported after 2 chunks and resumed on a second
+    chunked engine ("export"), or prefilled on a ``role="prefill"`` engine
+    that hands it to a ``role="decode"`` engine ("handoff").  The decode
+    batch shape and slot are the same every way, so the streams must match
+    token for token."""
+    from repro_torch.serve import Request, ServeEngine
+    req = Request(rid=0, prompt=prompt, max_new=CHUNK_NEW)
+    if mode == "handoff":
+        pre = _chunked_engine(model, params, role="prefill")
+        dec = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                          decode_chunk=4, role="decode")
+        pre.on_prefill_complete = dec.import_session
+        pre.submit(req)
+        for _ in range(1000):
+            pre.step()
+            dec.step()
+            check(pre.active_count() == 0, "the prefill engine took a slot")
+            if req.done:
+                break
+        check(pre.stats()["sessions_exported"] == 1
+              and dec.stats()["sessions_imported"] == 1, "no handoff")
+        return list(req.out_tokens)
+    a = _chunked_engine(model, params)
+    a.submit(req)
+    if mode == "export":
+        a.step()
+        a.step()
+        sess = a.export_prefill(req.rid)
+        check(sess.prefilled == 2 * CHUNK,
+              f"exported after {sess.prefilled} prompt tokens")
+        a = _chunked_engine(model, params)
+        a.import_session(sess)
+    a.run_until_drained()
+    return list(req.out_tokens)
+
+
+def phase_chunked(torch, card, model, params, whole_reqs):
+    import numpy as np
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=CHUNK_NEW)
+            for r in whole_reqs]
+    warm = _chunked_engine(model, params)
+    warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:CHUNK + 8],
+                        max_new=8))
+    warm.run_until_drained()
+    del warm                  # its idle batch cache must not count in the peak
+
+    engine = _chunked_engine(model, params)
+    lat, chunk_lat = [], []
+    engine.on_step_latency = lat.append
+    engine.on_prefill_latency = chunk_lat.append
+    for r in reqs:
+        engine.submit(r)
+    rd.launches = fa.launches = rp.launches = 0  # count this run only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"ragged_decode": rd.launches,
+                "flash_attention": fa.launches,
+                "ragged_prefill": rp.launches}
+
+    check(all(r.done for r in reqs), "chunked: not every request finished")
+    check(all(len(r.out_tokens) == CHUNK_NEW for r in reqs),
+          f"chunked: token counts {[len(r.out_tokens) for r in reqs]}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+          "chunked: a token is outside [0, vocab)")
+    check(engine.stats()["requests_served"] == len(reqs), "served count")
+    n_chunks = sum(-(-len(r.prompt) // CHUNK) for r in reqs)
+    check(len(chunk_lat) == n_chunks,
+          f"{len(chunk_lat)} chunk latencies for {n_chunks} chunks")
+    check(launches["ragged_prefill"] == n_chunks * cfg.n_layers,
+          f"ragged_prefill launches {launches['ragged_prefill']} != "
+          f"{n_chunks} chunks x {cfg.n_layers} layers")
+    check(launches["flash_attention"] == 0,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in the chunked run")
+    steps = len(lat)
+    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+          f"ragged_decode launches {launches['ragged_decode']} != {steps} "
+          f"steps x 4 tokens x {cfg.n_layers} layers")
+    check(engine.scheduler.ptt.updates == n_chunks + steps,
+          f"ptt.updates {engine.scheduler.ptt.updates} != {n_chunks} "
+          f"chunks + {steps} decode steps")
+    ttft = sorted(r.t_first - r.t_admit for r in reqs)
+    print(f"[chunked] {len(reqs)} requests x {CHUNK_NEW} tokens, chunks of "
+          f"{CHUNK}: {n_chunks} chunks, {steps} decode steps, wall "
+          f"{wall:.3f} s")
+    print(f"[chunked] p50 TTFT {1e3 * ttft[len(ttft) // 2]:.3f} ms, p50 "
+          f"chunk latency {1e3 * float(np.median(chunk_lat)):.3f} ms, p50 "
+          f"per-token step latency {1e3 * float(np.median(lat)):.3f} ms "
+          f"({card})")
+    print(f"[chunked] launches in the run: {launches}")
+    print(f"[chunked] peak device memory {peak} bytes ({card})")
+    same = sum(a.out_tokens[0] == b.out_tokens[0]
+               for a, b in zip(reqs, whole_reqs))
+    print(f"[chunked] first tokens equal to the whole-prompt run's: "
+          f"{same}/{len(reqs)} (bf16 near-ties may differ; not a check)")
+
+    prompt = max((r.prompt for r in reqs), key=len)
+    check(len(prompt) > 2 * CHUNK, "no prompt of 3 chunks or more")
+    ref = _chunked_solo(model, params, prompt, None)
+    for mode in ("export", "handoff"):
+        got = _chunked_solo(model, params, prompt, mode)
+        check(got == ref, f"chunked {mode} stream differs:\n{got}\n{ref}")
+        print(f"[chunked] {mode}: {len(got)} tokens identical to the "
+              f"unmigrated chunked stream (prompt {len(prompt)} tokens)")
+
+    tokens = torch.as_tensor(prompt, device="cuda").long()[None]
+    whole, _ = model.prefill(params, {"tokens": tokens})
+
+    def chain():
+        cache = {n: torch.zeros(shape, dtype=dt, device="cuda")
+                 for n, (shape, dt) in model.cache_spec(1, 2048).items()}
+        for s in range(0, len(prompt), CHUNK):
+            n = min(CHUNK, len(prompt) - s)
+            chunk = torch.zeros((1, CHUNK), dtype=torch.long, device="cuda")
+            chunk[0, :n] = tokens[0, s:s + n]
+            logits, cache = model.prefill_chunk(
+                params, chunk, cache,
+                torch.tensor([s], dtype=torch.int32, device="cuda"),
+                torch.tensor([n], dtype=torch.int32, device="cuda"))
+        return logits
+
+    chunked = chain()
+    diff = (whole.float() - chunked.float()).abs().max().item()
+    scale = whole.float().abs().max().item()
+    limit = LOGIT_REL_LIMIT * scale
+    check(math.isfinite(diff) and diff <= limit,
+          f"whole vs chunked prefill logits differ by {diff} > {limit}")
+    print(f"[chunked] last-token logits, whole vs chunked prefill of "
+          f"{len(prompt)} tokens: max abs diff {diff:.4g}, limit "
+          f"{limit:.4g} (2^-4 of max |logit| {scale:.4g})")
+    _profile_window(torch, chain, f"chunked prefill of {len(prompt)} tokens "
+                    f"in chunks of {CHUNK}", card)
     return launches
 
 
@@ -416,7 +672,9 @@ def main() -> int:
         print(f"[build] {len(_build.sources())} sources -> "
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         stats = phase_kernels(torch, args.seed, peaks)
-        launches = phase_serve(torch, args.seed, card)
+        launches, model, params, reqs = phase_serve(torch, args.seed, card)
+        chunked = phase_chunked(torch, card, model, params, reqs)
+        launches["ragged_prefill"] = chunked["ragged_prefill"]
         kernels = kernel_line(stats, launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -441,6 +699,12 @@ def kernel_line(stats: dict, launches: dict) -> list[dict]:
              replaces="src/repro/kernels/flash_attention/kernel.py:74",
              launches=launches["flash_attention"],
              **stats["flash_attention"]),
+        dict(name="ragged_prefill", route="cuda",
+             source="src/repro_torch/kernels/ragged_prefill/csrc/"
+                    "ragged_prefill.cu",
+             replaces="src/repro/kernels/ragged_prefill/kernel.py:97",
+             launches=launches["ragged_prefill"],
+             **stats["ragged_prefill"]),
     ]
     for kr in kernels:
         check(kr["launches"] > 0, f"{kr['name']} never launched")

@@ -110,6 +110,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, F,              # causal, scale
         P]                 # stream
     lib.flash_attention_launch.restype = I
+    lib.ragged_prefill_launch.argtypes = [
+        I,                 # dtype code
+        P, P, P, P, P, P,  # q, k, v, start, qlen, out
+        I, I, I, I, I, I,  # B, T, Smax, Hkv, rep, hd
+        F,                 # scale
+        P]                 # stream
+    lib.ragged_prefill_launch.restype = I
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

@@ -6,6 +6,8 @@ Every family module provides::
 
     init(cfg, generator, device) -> params (an nn.Module)
     prefill(cfg, p, batch)        -> (last logits, cache)
+    prefill_chunk(cfg, p, tokens, cache, start, qlen)
+                                  -> (last live logits, cache)   in place
     decode(cfg, p, token, pos, cache) -> (logits, cache)   cache in place
     cache_spec(cfg, B, S)         -> {leaf: (shape, dtype)}
     cache_logical_axes(cfg), cache_seq_axes(cfg)
@@ -48,7 +50,11 @@ class Model:
     cache_seq_axes: Callable
     extract_session: Callable     # (cache, slot, pos) -> session dict (numpy)
     insert_session: Callable      # (cache, slot, session) -> cache (in place)
-    prefill_chunk: Callable | None = None   # chunked prefill: ROADMAP A2
+    prefill_chunk: Callable | None = None
+                                  # (params, tokens (B,T), cache, start (B,),
+                                  # qlen (B,)) -> (logits (B,1,V), cache):
+                                  # one chunk, cache written in place; None
+                                  # for a family without a chunkable prefill
 
 
 _FAMILY = {"dense": transformer}
@@ -93,6 +99,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, init=bind(mod.init), prefill=bind(mod.prefill),
                  decode=bind(mod.decode),
                  decode_fused=_fused_decode(cfg, mod),
+                 prefill_chunk=bind(mod.prefill_chunk),
                  cache_spec=bind(mod.cache_spec),
                  cache_logical_axes=bind(mod.cache_logical_axes),
                  cache_seq_axes=bind(mod.cache_seq_axes),

@@ -16,7 +16,8 @@ compute dtype.
 Attention: whole-prompt prefill calls the ``flash_attention`` kernel where
 the reference runs its jnp ``blocked_attention`` (or ``_wrapped_causal``);
 both exist only to bound XLA's memory, so neither is ported.  Decode calls
-the ``ragged_decode`` kernel, as the reference does.
+the ``ragged_decode`` kernel and chunked prefill the ``ragged_prefill``
+kernel, as the reference does.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 from ..configs.base import ModelConfig, torch_dtype
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ragged_decode import ragged_decode_attention
+from ..kernels.ragged_prefill import ragged_prefill_attention
 
 
 def _weight(t: torch.Tensor) -> nn.Parameter:
@@ -81,8 +83,8 @@ def apply_norm(p: Norm, x: torch.Tensor, kind: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def position_vector(pos, batch: int, device) -> torch.Tensor:
-    """Normalize a decode position — scalar (shared) or per-slot vector — to
-    an int32 ``(batch,)`` vector on ``device``."""
+    """Normalize a position — scalar (shared) or per-slot vector — to an
+    int32 ``(batch,)`` vector on ``device``."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1)
     if pos.shape[0] == batch:
         return pos
@@ -215,6 +217,58 @@ def attention_decode_inplace(cfg: ModelConfig, p: Attention,
     kl[batch_ix, row] = k[:, 0].to(kl.dtype)
     vl[batch_ix, row] = v[:, 0].to(vl.dtype)
     out = decode_attention(cfg, q, kl, vl, pos_vec)
+    return out @ p.wo
+
+
+def prefill_chunk_attention(cfg: ModelConfig, q: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            start: torch.Tensor,
+                            qlen: torch.Tensor) -> torch.Tensor:
+    """Chunk-of-queries attention against a ragged batch cache (the chunked
+    prefill analogue of :func:`decode_attention`).  q: (B, T, Hq, hd) —
+    chunk token ``i`` of slot ``b`` sits at absolute position ``start[b] +
+    i``; caches: (B, Smax, Hkv, hd), already holding the chunk's own K/V
+    rows; padded rows (``i >= qlen[b]``) come out zero.  The math lives in
+    :mod:`repro_torch.kernels.ragged_prefill`: the CUDA kernel on the card,
+    its plain version on the CPU."""
+    B, T, Hq, hd = q.shape
+    out = ragged_prefill_attention(q, k_cache, v_cache, start, qlen)
+    return out.reshape(B, T, Hq * hd).to(q.dtype)
+
+
+def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
+                                    x: torch.Tensor, kfull: torch.Tensor,
+                                    vfull: torch.Tensor, layer_idx: int,
+                                    start: torch.Tensor, qlen: torch.Tensor,
+                                    positions: torch.Tensor,
+                                    rope: bool = True) -> torch.Tensor:
+    """Chunk-of-tokens attention that writes the chunk's live K/V rows into
+    the STACKED (L, B, Smax, Hkv, hd) caches in place and returns the
+    attention output.  ``x``: (B, T, D); ``positions``: (B, T) int32
+    absolute positions (``start[:, None] + arange(T)``).
+
+    Padded rows (``i >= qlen[b]``) must not reach the cache, where the
+    reference drops them with an out-of-bounds scatter.  Here every row
+    ``i`` writes row ``(start[b] + i) % Smax``: for ``T <= Smax`` those
+    rows are distinct within a slot, the live ones take the chunk's K/V,
+    and each padded one takes back its own old value, gathered before the
+    write.  That is exact, and needs no host sync."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = x.to(cdt)
+    B, T, _ = x.shape
+    kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Smax, Hkv, hd)
+    Smax = kl.shape[1]
+    if T > Smax:
+        raise ValueError(f"a chunk of {T} tokens does not fit a cache of "
+                         f"{Smax} rows")
+    q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
+    rows = positions.long() % Smax
+    batch_ix = torch.arange(B, device=x.device)[:, None]
+    live = (torch.arange(T, device=x.device)[None, :]
+            < qlen[:, None])[:, :, None, None]
+    kl[batch_ix, rows] = torch.where(live, k.to(kl.dtype), kl[batch_ix, rows])
+    vl[batch_ix, rows] = torch.where(live, v.to(vl.dtype), vl[batch_ix, rows])
+    out = prefill_chunk_attention(cfg, q, kl, vl, start, qlen)
     return out @ p.wo
 
 

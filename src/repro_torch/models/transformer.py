@@ -6,8 +6,7 @@ scans stacked layer parameters (``lax.scan``) under ``jax.checkpoint``;
 inference needs no rematerialization.  The decode caches stay one stacked
 ``(L, B, Smax, Hkv, hd)`` tensor per K and V, written in place.
 
-``forward`` (training) and ``prefill_chunk`` (chunked prefill) are not
-ported yet (ROADMAP A8 and A2).
+``forward`` (training) is not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -87,6 +86,16 @@ def _block_prefill(cfg: ModelConfig, lp: Block, x, positions):
     return x, (k, v)
 
 
+def _block_prefill_chunk(cfg: ModelConfig, lp: Block, x, kfull, vfull,
+                         layer_idx: int, start, qlen, positions):
+    h = L.apply_norm(lp.ln1, x, cfg.norm)
+    x = x + L.attention_prefill_chunk_inplace(cfg, lp.attn, h, kfull, vfull,
+                                              layer_idx, start, qlen,
+                                              positions)
+    h = L.apply_norm(lp.ln2, x, cfg.norm)
+    return x + L.mlp_apply(cfg, lp.mlp, h)
+
+
 def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
                   layer_idx: int, pos):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
@@ -113,6 +122,30 @@ def prefill(cfg: ModelConfig, p: Transformer, batch: dict):
     x = L.apply_norm(p.ln_f, x, cfg.norm)
     logits = L.lm_head(cfg, p.tok, x[:, -1:])
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def prefill_chunk(cfg: ModelConfig, p: Transformer, tokens, cache: dict,
+                  start, qlen):
+    """Consume one fixed-size prompt chunk against (L, B, Smax, Hkv, hd)
+    caches, written in place (the returned cache is the same dict of the
+    same tensors).  ``tokens``: (B, T) ids, rows past ``qlen[b]`` padding;
+    ``start``: (B,) absolute position of each slot's first chunk token;
+    ``qlen``: (B,) live tokens.  Returns (logits at each slot's last live
+    token ``max(qlen - 1, 0)``, (B, 1, V); cache) — meaningful once the
+    chunk holding the prompt's final token has been consumed."""
+    x = L.embed_tokens(cfg, p.tok, tokens)
+    B, T = tokens.shape
+    start = L.position_vector(start, B, x.device)
+    qlen = L.position_vector(qlen, B, x.device)
+    positions = start[:, None] + torch.arange(T, dtype=torch.int32,
+                                              device=x.device)[None, :]
+    for i, lp in enumerate(p.layers):
+        x = _block_prefill_chunk(cfg, lp, x, cache["k"], cache["v"], i,
+                                 start, qlen, positions)
+    last = (qlen - 1).clamp(min=0).long()
+    x = x[torch.arange(B, device=x.device), last][:, None]   # (B, 1, D)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x), cache
 
 
 def decode(cfg: ModelConfig, p: Transformer, token, pos, cache: dict):

@@ -6,6 +6,14 @@ constructor and surface.
   prompt** — prefill runs per request (whole prompt, through the
   ``flash_attention`` kernel on the card) and its KV cache is written into
   the slot's rows of the batch cache (``Model.insert_session``);
+* with ``prefill_chunk_tokens > 0`` a prompt instead prefills in chunks of
+  that many tokens through ``Model.prefill_chunk`` (the
+  ``ragged_prefill`` kernel on the card), one chunk per ``step`` between
+  decode chunks, in a cache of its own that holds no slot; it takes a slot
+  when done, or, with ``on_prefill_complete`` set (a prefill-role
+  replica), leaves as a :class:`Session` for a decode replica.  An
+  unfinished prefill can leave too (``export_prefill``) and resume its
+  remaining chunks elsewhere;
 * every engine step decodes a **chunk of ``decode_chunk`` tokens** for the
   whole active batch at **per-slot positions** through
   ``Model.decode_fused``: the cache is updated in place, greedy sampling
@@ -17,16 +25,15 @@ constructor and surface.
 * finished sequences free their slots immediately;
 * a live request can leave the engine as a :class:`Session`
   (``export_session``) and resume on another engine (``import_session``);
-* the :class:`ElasticServeScheduler` is consulted per prefill (critical)
-  and per decode chunk (non-critical).  Its PTT learns **device** time:
-  every latency sample is taken after the host sync that ends the work
-  (the ``argmax`` of a prefill, the ``(B, k)`` copy of a decode chunk),
-  never after the enqueue alone.
+* the :class:`ElasticServeScheduler` is consulted per prefill or prefill
+  chunk (critical) and per decode chunk (non-critical).  Its PTT learns
+  **device** time: every latency sample is taken after the host sync that
+  ends the work (the ``argmax`` of a prefill or of a prompt's last chunk,
+  a stream synchronisation after any other chunk, the ``(B, k)`` copy of a
+  decode chunk), never after the enqueue alone.
 
-Not ported yet, and raising ``NotImplementedError``: chunked prefill
-(``prefill_chunk_tokens > 0``, ``export_prefill``, partial-session import;
-ROADMAP A2) and the session wire format (``export_session_wire``,
-``import_session_wire``; ROADMAP A4).
+Not ported yet, and raising ``NotImplementedError``: the session wire
+format (``export_session_wire``, ``import_session_wire``; ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -69,8 +76,20 @@ class Session:
     cache: dict
     trace: dict | None = None    # trace context ({"trace_id": ...})
     prefilled: int | None = None  # None = prefill complete (a decode
-                                  # session); else a mid-prefill export
-                                  # (chunked prefill, ROADMAP A2)
+                                  # session); else the prompt tokens
+                                  # already consumed: a mid-prefill export
+                                  # whose cache holds only those rows
+
+
+@dataclasses.dataclass
+class _Prefill:
+    """An in-progress chunked prefill: the request and its own (L, 1,
+    max_seq, ...) device cache, written in place chunk by chunk.  It holds
+    no batch slot, so a long prompt never blocks a decode slot."""
+    req: Request
+    cache: dict
+    consumed: int = 0            # prompt tokens already in the cache
+    t_start: float | None = None  # first chunk's wall time
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -85,9 +104,6 @@ class ServeEngine:
                  prefill_chunk_tokens: int = 0):
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"unknown role {role!r}")
-        if prefill_chunk_tokens > 0:
-            raise _not_ported("chunked prefill (prefill_chunk_tokens > 0)",
-                              "A2")
         self.model = model
         self.params = params
         self.device = params.device
@@ -95,12 +111,19 @@ class ServeEngine:
         self.max_seq = max_seq
         self.decode_chunk = max(int(decode_chunk), 1)
         self.fused = fused
+        # ``role`` is a label the fleet tier routes by; the engine stays
+        # fully capable either way
         self.role = role
-        self.prefill_chunk_tokens = 0
+        self.prefill_chunk_tokens = max(int(prefill_chunk_tokens), 0)
         self.crashed = False
         self.scheduler = ElasticServeScheduler(num_groups)
         self.queue: deque[Request] = deque()
         self.sessions_in: deque[Session] = deque()   # imported, not yet slotted
+        self.prefilling: deque[_Prefill] = deque()   # chunked prefills in
+                                                     # flight (no slot held)
+        self._prefill_ready: deque[tuple[Request, int, dict]] = deque()
+                                 # chunk-prefilled, waiting for a free slot
+                                 # (req, next_token, device cache)
         self.active: list[Request | None] = [None] * max_batch
         self.cache = None
         self.pos = np.zeros(max_batch, dtype=np.int32)
@@ -114,8 +137,18 @@ class ServeEngine:
         self._dev_dirty = True
         # fleet surface: called with each step's decode latency per token
         # (elapsed / decode_chunk); steps that run no decode leave it
-        # uncalled
+        # uncalled and last_step_latency untouched
         self.on_step_latency = None
+        self.last_step_latency = 0.0
+        # chunked prefill reports to its own signal, never on_step_latency:
+        # the fleet's interference detector needs a homogeneous decode
+        # signal, and a burst of prompt chunks would read as a slow replica
+        self.on_prefill_latency = None
+        self.last_prefill_chunk_latency = 0.0
+        # prefill-role hook: a request whose prefill just completed leaves
+        # as a Session frozen straight off its prefill cache, handed to
+        # this callback; it never takes a slot here
+        self.on_prefill_complete = None
         self.tracer = NULL_TRACER
         self.metrics = None
         self.obs_name = "engine"
@@ -124,7 +157,7 @@ class ServeEngine:
         self._imports = 0        # sessions migrated in
         self._m_served = self._m_tokens = None
         self._m_exports = self._m_imports = None
-        self._h_prefill = self._h_step = None
+        self._h_prefill = self._h_step = self._h_prefill_chunk = None
         self._g_util = self._g_queue = None
 
     # -- observability -----------------------------------------------------
@@ -160,6 +193,10 @@ class ServeEngine:
             self._h_step = metrics.histogram(
                 "serve_decode_step_seconds",
                 "Decode latency per token (elapsed / chunk)", engine=e)
+            self._h_prefill_chunk = metrics.histogram(
+                "serve_prefill_chunk_seconds",
+                "Per-chunk prefill wall time (chunked admission)",
+                engine=e, role=self.role)
             self._g_util = metrics.gauge(
                 "serve_utilization",
                 "Fraction of batch slots occupied", engine=e)
@@ -181,7 +218,7 @@ class ServeEngine:
             "utilization": self.utilization(),
             "role": self.role,
             "crashed": self.crashed,
-            "prefilling": 0,             # chunked prefill: ROADMAP A2
+            "prefilling": len(self.prefilling) + len(self._prefill_ready),
         }
 
     # -- admission ---------------------------------------------------------
@@ -192,11 +229,14 @@ class ServeEngine:
 
     # -- crash / restart (fault injection surface) -------------------------
     def crash(self) -> None:
-        """Simulate process death: queued requests, imported sessions, the
-        batch cache and every active slot are lost.  Idempotent."""
+        """Simulate process death: queued requests, in-flight prefills,
+        imported sessions, the batch cache and every active slot are lost.
+        Idempotent."""
         self.crashed = True
         self.queue.clear()
         self.sessions_in.clear()
+        self.prefilling.clear()
+        self._prefill_ready.clear()
         self.active = [None] * self.max_batch
         self.cache = None
         self.pos[:] = 0
@@ -214,8 +254,10 @@ class ServeEngine:
 
     # -- non-blocking fleet surface ----------------------------------------
     def pending(self) -> int:
-        """Requests queued (fresh or imported sessions) but not slotted."""
-        return len(self.queue) + len(self.sessions_in)
+        """Requests queued (fresh, imported sessions, chunked prefills in
+        flight, or prefilled-and-waiting) but not slotted."""
+        return (len(self.queue) + len(self.sessions_in)
+                + len(self.prefilling) + len(self._prefill_ready))
 
     def active_count(self) -> int:
         return sum(r is not None for r in self.active)
@@ -227,16 +269,24 @@ class ServeEngine:
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.active) if r is None]
 
+    def _zero_cache(self, batch: int) -> dict:
+        spec = self.model.cache_spec(batch, self.max_seq)
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in spec.items()}
+
     def _ensure_cache(self) -> None:
         if self.cache is None:
-            spec = self.model.cache_spec(self.max_batch, self.max_seq)
-            self.cache = {name: torch.zeros(shape, dtype=dt,
-                                            device=self.device)
-                          for name, (shape, dt) in spec.items()}
+            self.cache = self._zero_cache(self.max_batch)
+
+    def _chunking(self) -> bool:
+        """Whether chunked prefill admission is live on this engine."""
+        return (self.prefill_chunk_tokens > 0
+                and self.model.prefill_chunk is not None)
 
     def _slot_in(self, slot: int, req: Request, next_tok: int,
                  cache) -> None:
-        """Install a freshly prefilled request into a batch slot."""
+        """Install a freshly prefilled request into a batch slot (its cache
+        a whole-prompt prefill cache or a chunked (1, max_seq) one)."""
         self._ensure_cache()
         self.model.insert_session(self.cache, slot, cache)
         self.active[slot] = req
@@ -244,24 +294,60 @@ class ServeEngine:
         self.cur_token[slot, 0] = next_tok
         self._dev_dirty = True
 
-    def _complete_prefill(self, req: Request, next_tok: int) -> bool:
-        """Prefill epilogue: stamp the first token; True when that
-        finished the request (no slot needed)."""
+    def _complete_prefill(self, req: Request, next_tok: int, cache) -> bool:
+        """Prefill epilogue (whole-prompt and chunked): stamp the first
+        token, then finish, hand off, or return False so the caller slots
+        the request here.  With ``on_prefill_complete`` set the live
+        session is frozen straight off the prefill cache and handed to the
+        callback: no slot, no decode on this engine."""
         req.out_tokens.append(next_tok)
         req.t_first = time.perf_counter()
         if len(req.out_tokens) >= req.max_new:
-            req.done = True
+            req.done = True          # finished at prefill: no slot used
             self._finish(req)
+            return True
+        if self.on_prefill_complete is not None:
+            sess = Session(
+                req=req, pos=len(req.prompt), cur_token=next_tok,
+                cache=self.model.extract_session(cache, 0, len(req.prompt)))
+            self._exports += 1
+            if self._m_exports is not None:
+                self._m_exports.inc()
+            if self.tracer.enabled:
+                tid = self.tracer.trace_for(req.rid)
+                if tid is not None:
+                    sess.trace = {"trace_id": tid}
+                    self.tracer.instant("prefill-handoff", tid,
+                                        self.obs_name, pos=sess.pos)
+            self.on_prefill_complete(sess)
             return True
         return False
 
     def _admit(self) -> None:
         # ragged continuous batching: any free slot takes any queued prompt
-        # (imported sessions first: their prefill was paid elsewhere)
+        # (chunk-prefilled requests first, their cache already on the
+        # device, then imported sessions, whose prefill was paid elsewhere)
         slots = self._free_slots()
+        while slots and self._prefill_ready:
+            req, next_tok, cache = self._prefill_ready.popleft()
+            self._slot_in(slots.pop(0), req, next_tok, cache)
         while slots and self.sessions_in:
             self._install_session(slots.pop(0), self.sessions_in.popleft())
-        while self.queue and slots:
+        while self.queue:
+            if self._chunking():
+                # chunked admission holds no slot: the prompt prefills in
+                # its own cache, one chunk per step, and claims a slot (or
+                # ships) only when done
+                if len(self.prefilling) >= self.max_batch:
+                    break
+                req = self.queue.popleft()
+                req.t_admit = time.perf_counter()
+                self.prefilling.append(
+                    _Prefill(req=req, cache=self._zero_cache(1)))
+                continue
+            if not slots and self.on_prefill_complete is None:
+                break                # whole-prompt path needs a slot unless
+                                     # every completion hands off
             req = self.queue.popleft()
             t0 = time.perf_counter()
             req.t_admit = t0
@@ -282,9 +368,61 @@ class ServeEngine:
                         ts=t0, dur=prefill_dur, prompt_len=len(req.prompt))
             if self._h_prefill is not None:
                 self._h_prefill.observe(prefill_dur)
-            if self._complete_prefill(req, next_tok):
-                continue             # finished at prefill: no slot used
+            if self._complete_prefill(req, next_tok, cache):
+                continue             # finished at prefill or handed off
             self._slot_in(slots.pop(0), req, next_tok, cache)
+
+    def _advance_prefill(self) -> None:
+        """Run ONE chunk of the oldest in-flight chunked prefill: called once
+        per step, so a long prompt prefills between decode chunks instead
+        of blocking them.  Its latency goes to ``on_prefill_latency``,
+        ``last_prefill_chunk_latency`` and the PTT, never to the decode
+        step hook."""
+        if not self.prefilling:
+            return
+        pf = self.prefilling[0]
+        prompt = np.asarray(pf.req.prompt)
+        C = min(self.prefill_chunk_tokens, self.max_seq)
+        qlen = min(C, len(prompt) - pf.consumed)
+        t0 = time.perf_counter()
+        if pf.t_start is None:
+            pf.t_start = t0
+        d = self.scheduler.schedule_prefill(qlen)
+        chunk = np.zeros((1, C), np.int64)
+        chunk[0, :qlen] = prompt[pf.consumed:pf.consumed + qlen]
+        logits, pf.cache = self.model.prefill_chunk(
+            self.params, torch.from_numpy(chunk).to(self.device), pf.cache,
+            torch.tensor([pf.consumed], dtype=torch.int32,
+                         device=self.device),
+            torch.tensor([qlen], dtype=torch.int32, device=self.device))
+        pf.consumed += qlen
+        done = pf.consumed >= len(prompt)
+        # the chunk's one host sync, before the PTT sample: the argmax of
+        # the last chunk; after any other, a wait that copies nothing (CPU
+        # tensors are computed synchronously)
+        if done:
+            next_tok = int(torch.argmax(logits[0, -1]))
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dur = time.perf_counter() - t0
+        self.scheduler.record(d, dur, time.perf_counter())
+        self.last_prefill_chunk_latency = dur
+        if self._h_prefill_chunk is not None:
+            self._h_prefill_chunk.observe(dur)
+        if self.tracer.enabled:
+            tid = self.tracer.trace_for(pf.req.rid)
+            if tid is not None:
+                self.tracer.complete("prefill-chunk", tid, self.obs_name,
+                                     ts=t0, dur=dur, tokens=qlen,
+                                     consumed=pf.consumed)
+        if self.on_prefill_latency is not None:
+            self.on_prefill_latency(dur)
+        if done:
+            self.prefilling.popleft()
+            if self._h_prefill is not None:
+                self._h_prefill.observe(time.perf_counter() - pf.t_start)
+            if not self._complete_prefill(pf.req, next_tok, pf.cache):
+                self._prefill_ready.append((pf.req, next_tok, pf.cache))
 
     def _finish(self, req: Request) -> None:
         """Bookkeep one finished request (counter + optional instant)."""
@@ -322,7 +460,30 @@ class ServeEngine:
         raise KeyError(f"rid {rid} is not active on this engine")
 
     def export_prefill(self, rid: int) -> Session:
-        raise _not_ported("export_prefill (chunked prefill)", "A2")
+        """Freeze an in-progress chunked prefill into a partial Session
+        (``prefilled`` = prompt tokens already consumed; the cache holds
+        exactly those rows).  The importing engine resumes the remaining
+        chunks.  Raises KeyError if ``rid`` is not mid-prefill here."""
+        for i, pf in enumerate(self.prefilling):
+            if pf.req.rid == rid:
+                del self.prefilling[i]
+                k = pf.consumed
+                sess = Session(
+                    req=pf.req, pos=k, cur_token=0,
+                    cache=self.model.extract_session(pf.cache, 0, k),
+                    prefilled=k)
+                self._exports += 1
+                if self._m_exports is not None:
+                    self._m_exports.inc()
+                if self.tracer.enabled:
+                    tid = self.tracer.trace_for(rid)
+                    if tid is not None:
+                        sess.trace = {"trace_id": tid}
+                        self.tracer.instant("migrate-out", tid,
+                                            self.obs_name, pos=k,
+                                            prefilled=k)
+                return sess
+        raise KeyError(f"rid {rid} is not mid-prefill on this engine")
 
     def can_hold(self, pos: int, remaining: int) -> bool:
         """Whether a session at ``pos`` with ``remaining`` tokens to decode
@@ -337,7 +498,8 @@ class ServeEngine:
         if self.crashed:
             raise ValueError("engine is crashed; restart() before imports")
         if sess.prefilled is not None:
-            raise _not_ported("importing a mid-prefill session", "A2")
+            self._import_partial(sess)
+            return
         if sess.pos >= self.max_seq - 1:
             raise ValueError(
                 f"session at pos {sess.pos} does not fit max_seq "
@@ -358,11 +520,68 @@ class ServeEngine:
                                 self.obs_name, pos=sess.pos)
         self.sessions_in.append(sess)
 
+    def _import_partial(self, sess: Session) -> None:
+        """Adopt a mid-prefill session: its cache rows land in a fresh
+        per-request device cache, and the remaining chunks resume from
+        ``sess.prefilled``."""
+        if not self._chunking():
+            raise ValueError(
+                "partial-prefill session needs a chunked-prefill engine "
+                "(prefill_chunk_tokens > 0)")
+        plen = len(sess.req.prompt)
+        if not self.can_hold(plen, max(sess.req.max_new, 1)):
+            raise ValueError(
+                f"prompt of {plen} with {sess.req.max_new} to decode does "
+                f"not fit max_seq {self.max_seq}")
+        self._imports += 1
+        if self._m_imports is not None:
+            self._m_imports.inc()
+        if sess.trace is not None:
+            self.tracer.adopt(sess.req.rid, sess.trace["trace_id"])
+        if self.tracer.enabled:
+            tid = self.tracer.trace_for(sess.req.rid)
+            if tid is not None:
+                self.tracer.instant("migrate-in", tid, self.obs_name,
+                                    pos=sess.pos, prefilled=sess.prefilled)
+        cache = self.model.insert_session(self._zero_cache(1), 0, sess.cache)
+        self.prefilling.append(
+            _Prefill(req=sess.req, cache=cache, consumed=sess.prefilled))
+
     def export_session_wire(self, rid: int) -> bytes:
         raise _not_ported("the session wire format", "A4")
 
     def import_session_wire(self, data: bytes, strict: bool = True) -> None:
         raise _not_ported("the session wire format", "A4")
+
+    def active_pos(self, rid: int) -> int | None:
+        """Decode position of an active request (None if not active)."""
+        for slot, req in enumerate(self.active):
+            if req is not None and req.rid == rid:
+                return int(self.pos[slot])
+        return None
+
+    def drain_queue(self) -> list[Request]:
+        """Remove and return every request not yet started, in-flight
+        chunked prefills included: they have emitted no token, so they can
+        restart elsewhere (``export_prefill`` keeps the partial work)."""
+        out = list(self.queue) + [pf.req for pf in self.prefilling]
+        self.queue.clear()
+        self.prefilling.clear()
+        return out
+
+    def drain_sessions(self) -> list[Session]:
+        """Remove and return imported-but-unslotted sessions, and requests
+        that finished a chunked prefill but wait for a slot, as full
+        sessions (their first token is already stamped)."""
+        out = list(self.sessions_in)
+        self.sessions_in.clear()
+        for req, next_tok, cache in self._prefill_ready:
+            out.append(Session(
+                req=req, pos=len(req.prompt), cur_token=next_tok,
+                cache=self.model.extract_session(cache, 0,
+                                                 len(req.prompt))))
+        self._prefill_ready.clear()
+        return out
 
     def _install_session(self, slot: int, sess: Session) -> None:
         self._ensure_cache()
@@ -374,13 +593,15 @@ class ServeEngine:
 
     # -- decode loop ---------------------------------------------------------
     def step(self) -> int:
-        """One engine iteration: admit + decode one ``decode_chunk``-token
-        chunk for the batch at per-slot positions.  Returns the number of
-        active sequences.  ``on_step_latency`` receives the decode latency
-        per token (elapsed / chunk)."""
+        """One engine iteration: admit, run one prefill chunk if any is in
+        flight, and decode one ``decode_chunk``-token chunk for the batch
+        at per-slot positions.  Returns the number of active sequences.
+        ``last_step_latency`` and ``on_step_latency`` receive the decode
+        latency per token (elapsed / chunk)."""
         if self.crashed:
             return 0                 # a dead process steps nothing
         self._admit()
+        self._advance_prefill()
         n_active = self.active_count()
         if self._g_util is not None:
             self._g_util.set(n_active / self.max_batch)
@@ -439,6 +660,7 @@ class ServeEngine:
             # throwaway decode never sweeps more of the cache than one row
             self._dev_dirty = True
         per_token = decode_elapsed / k
+        self.last_step_latency = per_token
         if self._h_step is not None:
             self._h_step.observe(per_token)
             self._m_tokens.inc(n_active * k)

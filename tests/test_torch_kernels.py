@@ -6,7 +6,9 @@ which the port's whole-prompt prefill replaces with ``flash_attention``.
 Inputs come from numpy seeds and go to both packages.  Tolerance: 1e-5 abs
 in float32 (the two sides sum in different orders).  The CUDA kernels
 themselves run only on the card (``chip_smoke.py``); here the wrappers must
-take the plain path for CPU tensors and refuse any other device.
+take the plain path for CPU tensors and refuse any other device.  The
+``ragged_prefill`` plain version is held against JAX in
+``test_torch_disagg.py``.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro.models.layers import blocked_attention
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.ragged_decode import ops as rd
+from repro_torch.kernels.ragged_prefill import ops as rp
 
 TOL = 1e-5
 
@@ -151,6 +154,9 @@ def test_ops_refuse_devices_without_a_kernel():
     q4 = torch.empty(1, 4, 8, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(q4, q4, q4)
+    one = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rp.ragged_prefill_attention(q4, q4, q4, one, one)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -163,7 +169,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_names_library_by_source_hash():
     srcs = _build.sources()
-    assert {p.parent.parent.name for p in srcs} == {"ragged_decode",
-                                                    "flash_attention"}
+    assert {p.parent.parent.name for p in srcs} == {
+        "ragged_decode", "flash_attention", "ragged_prefill"}
     assert len(_build._digest(srcs)) == 16
     assert _build._digest(srcs) != _build._digest(srcs[:1])

@@ -6,6 +6,8 @@ mid-chunk), on the legacy per-step path, and across a session export /
 import; the PTT must have learned from as many samples.  Also: the
 surfaces not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item, and the port runs with JAX and the JAX package unimportable.
+Chunked prefill and the prefill-role handoff are in
+``test_torch_disagg.py``.
 """
 
 import os
@@ -139,20 +141,26 @@ def test_export_import_token_identity(pair, jax_streams, arch):
 
 def test_surfaces_not_ported_raise(pair):
     _, _, tm, tp = pair("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        TServeEngine(tm, tp, max_batch=2, max_seq=MAX_SEQ,
-                     prefill_chunk_tokens=4)
     eng = TServeEngine(tm, tp, max_batch=2, max_seq=MAX_SEQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        eng.export_prefill(0)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         eng.export_session_wire(0)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         eng.import_session_wire(b"")
-    req = TRequest(rid=0, prompt=np.arange(4), max_new=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        eng.import_session(TSession(req=req, pos=2, cur_token=0, cache={},
-                                    prefilled=2))
+
+
+def test_last_step_latency_is_the_per_token_decode_latency(pair):
+    """Set on every decode step to what ``on_step_latency`` receives
+    (elapsed / chunk); steps that decode nothing leave it as it was."""
+    _, _, tm, tp = pair("smollm-135m")
+    eng = TServeEngine(tm, tp, max_batch=2, max_seq=MAX_SEQ, decode_chunk=2)
+    lat = []
+    eng.on_step_latency = lat.append
+    assert eng.last_step_latency == 0.0
+    eng.submit(TRequest(rid=0, prompt=np.arange(5), max_new=5))
+    while eng.step():
+        assert eng.last_step_latency == lat[-1] > 0.0
+    assert len(lat) == 2                  # 1 prefill token + 2 chunks of 2
+    assert eng.step() == 0 and eng.last_step_latency == lat[-1]
 
 
 def test_crash_restart_and_tracing(pair):
