@@ -32,9 +32,24 @@ Phases, in order; any failure exits non-zero before the last line:
              handing its sessions to a ``role="decode"`` engine both
              continue the unmigrated chunked stream token for token; and
              the chunked and whole-prompt prefills of the longest prompt
-             agree on its last-token logits within a stated limit.
+             agree on its last-token logits within a stated limit;
+6. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+             150 sort, 150 copy tasks, average width 4, edge rate 2)
+             through the threaded XiTAO runtime on 4 workers, every TAO
+             body running its kernel class (``matmul``, ``bitonic_sort``,
+             ``stream_copy``) at the paper's sizes on the card, once under
+             the homogeneous work-stealing scheduler and once under the
+             PTT's performance-based one: every task placed on a valid
+             place, 450 PTT updates, each kernel launched exactly as often
+             as its tasks' widths sum to, every output right (matmul
+             within 1e-5 relative, copy exact, sort exact per chunk); it
+             prints tasks/s, makespan, placements by width and the trained
+             PTT, and profiles one run.
 
-Each serve phase prints its peak device memory.
+The kernels phase also holds the runtime's kernels and ``stream_scale_add``
+against their plain versions (``torch.matmul``, ``dst.copy_(src)``, the
+``a * x + b * y`` expression and ``torch.sort`` are the library times).
+Each serve and runtime phase prints its peak device memory.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Nothing of JAX or of the JAX
@@ -55,7 +70,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # card name substring -> (memory bytes/s, bf16 dense FLOP/s, f32 FLOP/s),
-# NVIDIA data sheets; the SXM part is the default
+# NVIDIA data sheets; the SXM part is the default.  phase_device appends
+# the card's 32-bit min/max rate (the sort's bound).
 PEAKS = {"PCIe": (2.0e12, 756e12, 51e12),
          "NVL": (3.9e12, 835e12, 60e12),
          "SXM": (3.35e12, 989e12, 67e12)}
@@ -90,9 +106,21 @@ def phase_device(torch):
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     peaks = next((v for k, v in PEAKS.items() if k in name), PEAKS["SXM"])
+    # 32-bit compare / min / max: 64 results per clock per SM at compute
+    # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+    # throughput), at the card's own SM count and maximum SM clock
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    minmax = sms * 64 * float(clk.stdout.split()[0]) * 1e6
+    peaks = (*peaks, minmax)
     print(f"[device] {name} x{torch.cuda.device_count()}; peaks used for "
           f"bounds: {peaks[0]:.3g} B/s, {peaks[1]:.3g} bf16 FLOP/s, "
-          f"{peaks[2]:.3g} f32 FLOP/s")
+          f"{peaks[2]:.3g} f32 FLOP/s, {minmax:.4g} 32-bit min/max per s "
+          f"({sms} SMs x 64 x {clk.stdout.split()[0]} MHz)")
     return card, name, peaks
 
 
@@ -122,9 +150,12 @@ def time_ms(torch, fn, flush) -> float:
     return total / N_TIMED
 
 
-def bound(peaks, nbytes: float, nops: float, dtype_is_bf16: bool):
+def bound(peaks, nbytes: float, nops: float, dtype_is_bf16: bool,
+          rate: float | None = None):
+    """The least time in ms: bytes over the memory rate or operations over
+    ``rate`` (default the bf16 or f32 peak), whichever is larger."""
     t_bytes = nbytes / peaks[0]
-    t_ops = nops / (peaks[1] if dtype_is_bf16 else peaks[2])
+    t_ops = nops / (rate or (peaks[1] if dtype_is_bf16 else peaks[2]))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -262,6 +293,208 @@ def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
                 bound_by=by, library_ms=lib_ms)
 
 
+def _within(torch, out, ref, rtol: float, atol: float):
+    """max |out - ref|, and whether every element is within atol + rtol *
+    |ref| (numpy's assert_allclose, the reference tests' form)."""
+    d = (out.float() - ref.float()).abs()
+    return d.max().item(), bool((d <= atol + rtol * ref.float().abs()).all())
+
+
+def matmul_case(torch, mm, gen, peaks, flush, dt, M, K, N, tol, timed,
+                rows=None):
+    """(M, K) x (K, N) against the plain version within ``tol`` relative
+    and ``tol * sqrt(K)`` absolute, the reference tests' limits.  With
+    ``rows = (lo, hi)`` the row slice x[lo:hi] goes into out[lo:hi] of an
+    (M, N) output whose other rows must stay untouched, as a TAO chunk
+    writes."""
+    dev = "cuda"
+    x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+    y = torch.randn(K, N, generator=gen, device=dev).to(dt)
+    launches0 = mm.launches
+    label = f"matmul {str(dt)[6:]} ({M},{K})x({K},{N})"
+    if rows is None:
+        out, ref = mm.matmul(x, y), mm.matmul_ref(x, y)
+    else:
+        lo, hi = rows
+        label += f" rows [{lo}:{hi}) into out[{lo}:{hi}]"
+        full = torch.full((M, N), -7.0, dtype=dt, device=dev)
+        mm.matmul(x[lo:hi], y, out=full[lo:hi])
+        out, ref = full[lo:hi], mm.matmul_ref(x[lo:hi], y)
+        torch.cuda.synchronize()
+        check(bool((full[:lo] == -7).all() and (full[hi:] == -7).all()),
+              f"{label}: rows outside the slice were written")
+    torch.cuda.synchronize()
+    mm.launches = launches0            # comparison launches do not count
+    err, ok = _within(torch, out, ref, tol, tol * math.sqrt(K))
+    check(math.isfinite(err) and ok, f"{label}: max abs err {err} beyond "
+                                     f"{tol} relative + {tol}*sqrt(K)")
+    print(f"[kernel] {label}: max_abs_err={err:.3g} (limit {tol} relative "
+          f"+ {tol * math.sqrt(K):.3g} absolute)")
+    if not timed:
+        return dict(max_abs_err=err)
+    o = torch.empty(M, N, dtype=dt, device=dev)
+    ms = time_ms(torch, lambda: mm.matmul(x, y, out=o), flush)
+    plain_ms = time_ms(torch, lambda: mm.matmul_ref(x, y), flush)
+    lib_ms = time_ms(torch, lambda: torch.matmul(x, y), flush)
+    mm.launches = launches0
+    es = x.element_size()
+    bms, by = bound(peaks, (M * K + K * N + M * N) * es, 2 * M * N * K,
+                    dt == torch.bfloat16)
+    print(f"[kernel] {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (torch.matmul, TF32 off) "
+          f"bound_ms={bms:.5f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def copy_case(torch, sc, src, dst, s_lo, d_lo, m, label):
+    """src[s_lo:s_lo+m] copied into dst[d_lo:d_lo+m] of a sentinel-filled
+    dst: the chunk exact, the rest of dst untouched."""
+    launches0 = sc.copy_launches
+    sentinel = dst.clone()
+    sc.stream_copy(src[s_lo:s_lo + m], out=dst[d_lo:d_lo + m])
+    torch.cuda.synchronize()
+    sc.copy_launches = launches0
+    exact = torch.equal(dst[d_lo:d_lo + m], src[s_lo:s_lo + m])
+    rest = (torch.equal(dst[:d_lo], sentinel[:d_lo])
+            and torch.equal(dst[d_lo + m:], sentinel[d_lo + m:]))
+    check(exact and rest, f"stream_copy {label}: chunk exact {exact}, rest "
+                          f"untouched {rest}")
+    nb = m * src.element_size()
+    print(f"[kernel] stream_copy {label}: {nb} bytes from byte offset "
+          f"{src[s_lo:].data_ptr() % 16} to {dst[d_lo:].data_ptr() % 16} "
+          f"(mod 16): exact (limit 0), rest of dst untouched")
+
+
+def phase_paper_kernels(torch, gen, peaks, flush):
+    """The runtime's three kernel classes and scale-add against their
+    plain versions: the TAO shapes (64x64x64 f32 and a 16-row slice; the
+    16.8 MB int32 copy and chunks of it; sort rows of 65,536 and 21,845
+    int32) and ragged ones."""
+    from repro_torch.kernels.bitonic_sort import ops as so
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.stream_copy import ops as sc
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    dev = "cuda"
+    mm_cases = [matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
+                            1e-4, True),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
+                            1e-4, False, rows=(16, 32)),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 1000, 700,
+                            300, 1e-4, False),
+                matmul_case(torch, mm, gen, peaks, flush, bf16, 1000, 700,
+                            300, 2e-2, False)]
+
+    # copy: the paper's 16.8 MB of int32, whole and as a TAO chunk at
+    # width 3 (16-byte aligned, as every chunk of it is up to width 7);
+    # then a head and a tail around the 16-byte body, and bytes at offsets
+    # of unequal alignment
+    n = 16_800_000 // 4
+    src = torch.randint(0, 255, (n,), generator=gen, device=dev, dtype=i32)
+    dst = torch.full((n,), -1, dtype=i32, device=dev)
+    copy_case(torch, sc, src, dst, 0, 0, n, "16.8 MB int32, whole")
+    dst.fill_(-1)
+    copy_case(torch, sc, src, dst, n // 3, n // 3, 2 * n // 3 - n // 3,
+              "int32 chunk 1 of 3")
+    dst.fill_(-1)
+    copy_case(torch, sc, src, dst, 2, 2, n - 3, "int32 elements [2, n-1)")
+    src8, dst8 = src.view(torch.uint8), dst.view(torch.uint8)
+    dst8.fill_(0xAB)
+    copy_case(torch, sc, src8, dst8, 3, 6, 1_000_001, "uint8 3 -> 6")
+    dst8.fill_(0xAB)
+    copy_case(torch, sc, src8, dst8, 5, 21, 999_999, "uint8 5 -> 21")
+    launches0 = sc.copy_launches
+    ms = time_ms(torch, lambda: sc.stream_copy(src, out=dst), flush)
+    plain_ms = time_ms(torch, lambda: sc.stream_copy_ref(src), flush)
+    lib_ms = time_ms(torch, lambda: dst.copy_(src), flush)
+    sc.copy_launches = launches0
+    bms, by = bound(peaks, 2 * n * 4, 0, False)
+    print(f"[kernel] stream_copy 16.8 MB int32: ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} (dst.copy_(src)) "
+          f"bound_ms={bms:.5f} ({by})")
+    copy_stats = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # scale-add, 4.2 M elements, a = 0.9, b = 0.1: float32 is rounded as
+    # the plain version rounds it (exact); bfloat16 within 2e-2
+    sa_errs = {}
+    for dt, lo, limit in ((f32, 0, 0.0), (bf16, 0, 2e-2), (f32, 1, 0.0)):
+        x = torch.randn(n + lo, generator=gen, device=dev).to(dt)[lo:]
+        y = torch.randn(n + lo, generator=gen, device=dev).to(dt)[lo:]
+        out = sc.stream_scale_add(x, y, 0.9, 0.1)
+        ref = sc.stream_scale_add_ref(x, y, 0.9, 0.1)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        label = (f"stream_scale_add {str(dt)[6:]} n={n}"
+                 + (f" at element offset {lo} (scalar path)" if lo else ""))
+        check(err <= limit, f"{label}: max abs err {err} > {limit}")
+        print(f"[kernel] {label}: max_abs_err={err:.3g} (limit {limit})")
+        sa_errs[(dt, lo)] = err
+        # these checks are scale-add's only launches (it is on no path),
+        # so they stay in its count
+    x = torch.randn(n, generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev)
+    o = torch.empty_like(x)
+    launches0 = sc.scale_add_launches
+    ms = time_ms(torch, lambda: sc.stream_scale_add(x, y, 0.9, 0.1, out=o),
+                 flush)
+    plain_ms = time_ms(torch, lambda: sc.stream_scale_add_ref(x, y, 0.9, 0.1),
+                       flush)
+    lib_ms = time_ms(torch, lambda: 0.9 * x + 0.1 * y, flush)
+    sc.scale_add_launches = launches0
+    bms, by = bound(peaks, 3 * n * 4, 3 * n, False)
+    print(f"[kernel] stream_scale_add float32 n={n}: ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} (0.9 * x + 0.1 * y) "
+          f"bound_ms={bms:.5f} ({by})")
+    sa_stats = dict(max_abs_err=max(sa_errs[(f32, 0)], sa_errs[(f32, 1)]),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+
+    # sort: the paper's row (65,536 int32, longer than shared memory), a
+    # row of 21,845 (65,536 / 3, padded to 32,768), rows on the
+    # shared-memory path, ragged and not
+    sort_stats = None
+    for dt, rows, m in ((i32, 1, 65536), (i32, 1, 21845), (f32, 8, 1024),
+                        (i32, 16, 5000), (f32, 2, 40000)):
+        if dt == i32:
+            x = torch.randint(0, 1 << 30, (rows, m), generator=gen,
+                              device=dev, dtype=i32)
+        else:
+            x = torch.randn(rows, m, generator=gen, device=dev)
+        launches0 = so.launches
+        out = so.sort_rows(x)
+        ref = so.sort_rows_ref(x)
+        torch.cuda.synchronize()
+        so.launches = launches0
+        label = f"bitonic_sort {str(dt)[6:]} ({rows}, {m})"
+        check(torch.equal(out, ref), f"{label}: differs from torch.sort")
+        print(f"[kernel] {label}: exact (limit 0)")
+        if sort_stats is not None:
+            continue
+        o = torch.empty_like(x)
+        ms = time_ms(torch, lambda: so.sort_rows(x, out=o), flush)
+        plain_ms = time_ms(torch, lambda: so.sort_rows_ref(x), flush)
+        lib_ms = time_ms(torch, lambda: torch.sort(x, -1), flush)
+        so.launches = launches0
+        # the work a row sort needs, not this kernel's network: at most
+        # n ceil(log2 n) comparisons a row, as a comparison sort needs
+        comparisons = rows * m * (m - 1).bit_length()
+        bms, by = bound(peaks, 2 * x.numel() * 4, comparisons, False,
+                        rate=peaks[3])
+        print(f"[kernel] {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (torch.sort) bound_ms={bms:.6f} "
+              f"({by}: {2 * x.numel() * 4} bytes at {peaks[0]:.4g} B/s; "
+              f"{comparisons} comparisons, n ceil(log2 n), at "
+              f"{peaks[3]:.4g} min/max per s)")
+        sort_stats = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return {"matmul": dict(mm_cases[0], max_abs_err=max(
+                c["max_abs_err"] for c in mm_cases[:3])),
+            "stream_copy": copy_stats,
+            "stream_scale_add": sa_stats,
+            "bitonic_sort": sort_stats}
+
+
 def phase_kernels(torch, seed, peaks):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -299,9 +532,10 @@ def phase_kernels(torch, seed, peaks):
                                     [256, 0, 100, 37], 2e-2, False),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     1000, [300, 0], [256, 5], 1e-4, False)]
+    paper = phase_paper_kernels(torch, gen, peaks, flush)
     del flush
     # the line's numbers: the first case of each, the serving path's shape
-    return {"ragged_decode": dict(rd_cases[0], max_abs_err=max(
+    return {**paper, "ragged_decode": dict(rd_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in rd_cases if c is not rd_cases[2])),
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fa_cases if c is not fa_cases[3])),
@@ -597,6 +831,166 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6. the paper's threaded runtime
+# ---------------------------------------------------------------------------
+
+RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
+RUNTIME_WORKERS = 4
+RUNTIME_TIMEOUT_S = 120.0
+MATMUL_RTOL = 1e-5           # the reference's threaded-runtime test
+
+
+def _runtime_run(torch, ThreadedRuntime, pool, dag, policy, seed, ops):
+    """One run of the DAG under ``policy`` with this run's outputs reset
+    (sentinels -1 where the inputs are never negative) and the launch
+    counts set to 0 just before it; returns placements, wall seconds and
+    the counts read just after."""
+    for t in pool.mat_out:
+        t.zero_()
+    for t in (*pool.sort_dst, *pool.copy_dst):
+        t.fill_(-1)
+    mm, sc, so = ops
+    mm.launches = sc.copy_launches = so.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placements = ThreadedRuntime(policy, RUNTIME_WORKERS, seed=seed).run(
+        dag, pool.bodies_for_dag(dag), timeout=RUNTIME_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return placements, wall, {"matmul": mm.launches,
+                              "stream_copy": sc.copy_launches,
+                              "bitonic_sort": so.launches}
+
+
+def _check_runtime(torch, pool, dag, layout, placements, launches, label):
+    """Every task placed on a valid place; launches = the sum of widths
+    over each class's tasks; every written slot right: matmul within the
+    reference's 1e-5 relative (1e-5 * sqrt(K) absolute, the reference
+    tests' form), copy exact, sort exact per chunk of the slot's last
+    writer (its highest node id: a slot's tasks form a dependency
+    chain)."""
+    from repro_torch.core import KernelType, Place
+    from repro_torch.kernels.bitonic_sort import sort_rows_ref
+    from repro_torch.kernels.matmul import matmul_ref
+    check(len(placements) == len(dag.nodes),
+          f"{label}: {len(placements)} of {len(dag.nodes)} tasks placed")
+    check(all(layout.is_valid(Place(l, w)) for l, w in placements.values()),
+          f"{label}: an invalid place")
+    kinds = {"matmul": KernelType.MATMUL, "bitonic_sort": KernelType.SORT,
+             "stream_copy": KernelType.COPY}
+    for name, k in kinds.items():
+        want = sum(placements[n.nid][1] for n in dag.nodes if n.kernel == k)
+        check(launches[name] == want, f"{label}: {name} launched "
+              f"{launches[name]} times, the {k.name} tasks' widths sum to "
+              f"{want}")
+    last = {}                          # (kernel, slot) -> its last writer
+    for n in dag.nodes:
+        last[(n.kernel, n.data_slot)] = max(n.nid, last.get(
+            (n.kernel, n.data_slot), -1))
+    mm_err = 0.0
+    for (k, slot), nid in sorted(last.items()):
+        if k == KernelType.MATMUL:
+            a = pool.mats[slot]
+            err, ok = _within(torch, pool.mat_out[slot], matmul_ref(a, a),
+                              MATMUL_RTOL, MATMUL_RTOL * math.sqrt(
+                                  a.shape[1]))
+            mm_err = max(mm_err, err)
+            check(ok, f"{label}: mat_out[{slot}] off by {err}")
+        elif k == KernelType.COPY:
+            check(torch.equal(pool.copy_dst[slot], pool.copy_src[slot]),
+                  f"{label}: copy_dst[{slot}] differs from its source")
+        else:
+            src, dst = pool.sort_src[slot], pool.sort_dst[slot]
+            w, m = placements[nid][1], len(src)
+            for c in range(w):
+                lo, hi = c * m // w, (c + 1) * m // w
+                check(torch.equal(dst[lo:hi],
+                                  sort_rows_ref(src[lo:hi][None])[0]),
+                      f"{label}: sort_dst[{slot}] chunk {c} of {w} is not "
+                      f"its source chunk sorted")
+    return mm_err
+
+
+def phase_runtime(torch, seed, card):
+    """The paper's experiment on the card: the mixed random DAG (150 tasks
+    of each class, average width 4, edge rate 2) through the threaded
+    XiTAO runtime on 4 workers, under the homogeneous work-stealing
+    scheduler and under the PTT's performance-based one, with every TAO
+    body running its kernel class at the paper's sizes on the device."""
+    import numpy as np
+    from repro_torch.core import (HomogeneousScheduler, KernelType,
+                                  PerformanceBasedScheduler, RandomDAGConfig,
+                                  generate_random_dag, homogeneous_layout)
+    from repro_torch.core.real_kernels import KernelPool
+    from repro_torch.core.runtime import ThreadedRuntime
+    from repro_torch.kernels.bitonic_sort import ops as so
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.stream_copy import ops as sc
+    ops = (mm, sc, so)
+
+    kinds = (KernelType.MATMUL, KernelType.SORT, KernelType.COPY)
+    dag = generate_random_dag(RandomDAGConfig(
+        tasks_per_kernel={k: RUNTIME_TASKS for k in kinds}, avg_width=4,
+        edge_rate=2.0, seed=seed))
+    n_slots = max(n.data_slot for n in dag.nodes) + 1
+    t0 = time.perf_counter()
+    pool = KernelPool(n_slots, seed=seed)          # the paper's sizes
+    torch.cuda.synchronize()
+    print(f"[runtime] DAG seed {seed}: {len(dag.nodes)} tasks, critical "
+          f"path {dag.critical_path_length}, parallelism "
+          f"{dag.parallelism:.3f}, {n_slots} data slots; KernelPool on the "
+          f"card ({torch.cuda.memory_allocated()} bytes allocated) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    layout = homogeneous_layout(RUNTIME_WORKERS)
+    # warm-up (not timed): the worker streams, the kernels' first launches
+    _runtime_run(torch, ThreadedRuntime, pool, dag,
+                 HomogeneousScheduler(layout), seed, ops)
+
+    main_launches, mm_err = None, 0.0
+    for label, policy in (
+            ("homogeneous", HomogeneousScheduler(layout)),
+            ("performance", PerformanceBasedScheduler(layout, len(
+                KernelType)))):
+        torch.cuda.reset_peak_memory_stats()
+        placements, wall, launches = _runtime_run(
+            torch, ThreadedRuntime, pool, dag, policy, seed, ops)
+        peak = torch.cuda.max_memory_allocated()
+        mm_err = max(mm_err, _check_runtime(torch, pool, dag, layout,
+                                            placements, launches, label))
+        hist = {}
+        for _, w in placements.values():
+            hist[w] = hist.get(w, 0) + 1
+        print(f"[runtime] {label}: {len(dag.nodes) / wall:.1f} tasks/s, "
+              f"makespan {1e3 * wall:.3f} ms ({card})")
+        print(f"[runtime] {label}: placements by width "
+              f"{dict(sorted(hist.items()))}; launches {launches}; peak "
+              f"device memory {peak} bytes")
+        if label == "performance":
+            check(policy.ptt.updates == len(dag.nodes),
+                  f"ptt.updates {policy.ptt.updates} != {len(dag.nodes)}")
+            print(f"[runtime] ptt.updates {policy.ptt.updates}; trained PTT "
+                  f"in ms (rows = leader cores, columns = widths "
+                  f"{layout.widths()}), {card}:")
+            for k in kinds:
+                table = np.array2string(1e3 * policy.ptt.table(int(k)),
+                                        precision=4, suppress_small=True)
+                print(f"[runtime]   {k.name}: " + table.replace(
+                    "\n", "\n[runtime]   " + " " * (len(k.name) + 2)))
+            main_launches = launches
+    print(f"[runtime] outputs right: every written mat_out within "
+          f"{MATMUL_RTOL} relative (max abs err {mm_err:.3g}), every "
+          f"copy_dst exact, every sort_dst sorted per chunk of its last "
+          f"writer")
+    _profile_window(torch, lambda: ThreadedRuntime(
+        PerformanceBasedScheduler(layout, len(KernelType)), RUNTIME_WORKERS,
+        seed=seed).run(dag, pool.bodies_for_dag(dag),
+                       timeout=RUNTIME_TIMEOUT_S),
+        f"the {len(dag.nodes)}-task DAG under the performance-based "
+        f"scheduler (device time summed over the worker streams)", card)
+    return main_launches
+
+
 def _profile_window(torch, fn, label: str, card: str, top: int = 8):
     """Run ``fn`` under torch.profiler; print device busy time against
     wall time and the kernels that took most device time."""
@@ -672,9 +1066,15 @@ def main() -> int:
         print(f"[build] {len(_build.sources())} sources -> "
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         stats = phase_kernels(torch, args.seed, peaks)
+        from repro_torch.kernels.stream_copy import ops as sc
+        # scale-add is on no path: its launches are its kernel checks'
+        scale_add_launches = sc.scale_add_launches
         launches, model, params, reqs = phase_serve(torch, args.seed, card)
         chunked = phase_chunked(torch, card, model, params, reqs)
         launches["ragged_prefill"] = chunked["ragged_prefill"]
+        del model, params, reqs
+        launches.update(phase_runtime(torch, args.seed, card))
+        launches["stream_scale_add"] = scale_add_launches
         kernels = kernel_line(stats, launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -705,6 +1105,28 @@ def kernel_line(stats: dict, launches: dict) -> list[dict]:
              replaces="src/repro/kernels/ragged_prefill/kernel.py:97",
              launches=launches["ragged_prefill"],
              **stats["ragged_prefill"]),
+        dict(name="matmul", route="cuda",
+             source="src/repro_torch/kernels/matmul/csrc/matmul.cu",
+             replaces="src/repro/kernels/matmul/kernel.py:35",
+             launches=launches["matmul"], **stats["matmul"]),
+        dict(name="stream_copy", route="cuda",
+             source="src/repro_torch/kernels/stream_copy/csrc/"
+                    "stream_copy.cu",
+             replaces="src/repro/kernels/stream_copy/kernel.py:21",
+             launches=launches["stream_copy"], **stats["stream_copy"]),
+        # on no path: its launches are those of its checks in the kernels
+        # phase, its only launches
+        dict(name="stream_scale_add", route="cuda",
+             source="src/repro_torch/kernels/stream_copy/csrc/"
+                    "stream_copy.cu",
+             replaces="src/repro/kernels/stream_copy/kernel.py:41",
+             launches=launches["stream_scale_add"],
+             **stats["stream_scale_add"]),
+        dict(name="bitonic_sort", route="cuda",
+             source="src/repro_torch/kernels/bitonic_sort/csrc/"
+                    "bitonic_sort.cu",
+             replaces="src/repro/kernels/bitonic_sort/kernel.py:47",
+             launches=launches["bitonic_sort"], **stats["bitonic_sort"]),
     ]
     for kr in kernels:
         check(kr["launches"] > 0, f"{kr['name']} never launched")

@@ -1,15 +1,24 @@
-# The paper's Performance Trace Table and the places it searches over (the
-# numpy parts of repro.core that the serving scheduler needs).
+# The paper's primary contribution: Performance Trace Table (PTT) +
+# criticality-aware performance-based scheduling on elastic places.  The
+# threaded runtime and its kernel bodies live in ``.runtime`` and
+# ``.real_kernels`` (imported from there, so this package stays light).
+from .dag import (KernelType, RandomDAGConfig, TaskDAG, TaskNode, chain_dag,
+                  generate_random_dag, is_critical_child, paper_fig1_dag)
 from .places import ClusterLayout, Place, divisor_widths, homogeneous_layout
 from .ptt import EMASearchMixin, PTT, PTTConfig
+from .scheduler import (HomogeneousScheduler, PerformanceBasedScheduler,
+                        SchedulingPolicy)
 from .tracetable import (Candidate, CostModel, GlobalSearch, Latency,
                          MigrationCost, Occupancy, QueueAware, RankedSearch,
                          SearchContext, SearchPolicy, StickySearch, Sum,
                          TraceTable)
 
 __all__ = [
+    "KernelType", "RandomDAGConfig", "TaskDAG", "TaskNode", "chain_dag",
+    "generate_random_dag", "is_critical_child", "paper_fig1_dag",
     "ClusterLayout", "Place", "divisor_widths", "homogeneous_layout",
     "EMASearchMixin", "PTT", "PTTConfig",
+    "HomogeneousScheduler", "PerformanceBasedScheduler", "SchedulingPolicy",
     "Candidate", "CostModel", "GlobalSearch", "Latency", "MigrationCost",
     "Occupancy", "QueueAware", "RankedSearch", "SearchContext",
     "SearchPolicy", "StickySearch", "Sum", "TraceTable",

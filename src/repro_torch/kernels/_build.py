@@ -117,6 +117,31 @@ def _declare(lib: ctypes.CDLL) -> None:
         F,                 # scale
         P]                 # stream
     lib.ragged_prefill_launch.restype = I
+    L = ctypes.c_longlong
+    lib.matmul_launch.argtypes = [
+        I, I,              # dtype, out dtype codes
+        P, P, P,           # x, y, out
+        I, I, I,           # M, N, K
+        L, L, L,           # row strides of x, y, out
+        P]                 # stream
+    lib.matmul_launch.restype = I
+    lib.stream_copy_launch.argtypes = [P, P, L, P]   # src, dst, nbytes, stream
+    lib.stream_copy_launch.restype = I
+    lib.stream_scale_add_launch.argtypes = [
+        I,                 # dtype code
+        P, P, P,           # x, y, out
+        L, F, F,           # n, a, b
+        P]                 # stream
+    lib.stream_scale_add_launch.restype = I
+    lib.bitonic_sort_launch.argtypes = [
+        I,                 # 0 float32, 1 int32
+        P, P, P,           # src, work (or null), out
+        I, L,              # rows, n
+        L, L, L,           # row strides of src, work, out
+        P]                 # stream
+    lib.bitonic_sort_launch.restype = I
+    lib.bitonic_sort_tile.argtypes = []
+    lib.bitonic_sort_tile.restype = I
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

@@ -170,6 +170,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_names_library_by_source_hash():
     srcs = _build.sources()
     assert {p.parent.parent.name for p in srcs} == {
-        "ragged_decode", "flash_attention", "ragged_prefill"}
+        "ragged_decode", "flash_attention", "ragged_prefill", "matmul",
+        "stream_copy", "bitonic_sort"}
     assert len(_build._digest(srcs)) == 16
     assert _build._digest(srcs) != _build._digest(srcs[:1])
