@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero before the last line:
              TF32 off for float32 matrix products and convolutions;
 2. build   — compile every ``csrc/*.cu`` of the port with nvcc (sm_90a);
 3. kernels — each hand-written kernel against its plain PyTorch version on
-             the card, at the serving path's shapes, with max abs error and
+             the card, at the serving path's shapes (the attention kernels
+             also at the edges of their designs: ragged decode with one
+             slot at the cache's end, every slot at 0, positions at the
+             chosen split's edges and past the cache, rep 16, hd 128;
+             flash prefill at 2048 and 17 tokens, hd 128, Sq != Skv),
+             with max abs error and
              limit, kernel / plain / library (SDPA) time from CUDA events
              with the L2 cache flushed before every launch, and the least
              time the card could take (bytes over memory rate or
@@ -160,23 +165,29 @@ def bound(peaks, nbytes: float, nops: float, dtype_is_bf16: bool,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol):
-    B, Hq, Hkv, hd = 8, 14, 2, 64
+def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol,
+                       B=8, Hq=14, Hkv=2, hd=64, pos=None):
+    """One decode step of attention; ``pos`` None draws each slot's
+    position, with slot 0 at 0 and slot 1 at the cache's last row."""
     dev = "cuda"
     q = torch.randn(B, Hq, hd, generator=gen, device=dev).to(dt)
     k = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
     v = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
-    pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    pos[0], pos[1] = 0, Smax - 1
+    if pos is None:
+        pos = torch.randint(0, Smax, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[0], pos[1] = 0, Smax - 1
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     launches0 = rd.launches
     out = rd.ragged_decode_attention(q, k, v, pos)
     ref = rd.ragged_decode_ref(q, k, v, pos)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "ragged_decode: non-finite output")
     err = (out - ref).abs().max().item()
-    check(err <= tol, f"ragged_decode {dt} Smax={Smax}: max abs err {err} "
-                      f"> {tol}")
+    label = (f"ragged_decode {str(dt)[6:]} B={B} Smax={Smax} Hq={Hq} "
+             f"Hkv={Hkv} hd={hd}")
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
     ms = time_ms(torch, lambda: rd.ragged_decode_attention(q, k, v, pos),
                  flush)
     plain_ms = time_ms(torch, lambda: rd.ragged_decode_ref(q, k, v, pos),
@@ -194,21 +205,25 @@ def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol):
               + out.numel() * 4)
     nops = 4 * Hq * hd * rows
     bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
-    print(f"[kernel] ragged_decode {str(dt)[6:]} B={B} Smax={Smax} Hq={Hq} "
-          f"Hkv={Hkv} hd={hd} live_rows={rows}: max_abs_err={err:.3g} "
-          f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+    n_split, L = rd.split_geometry(B, Hkv, Smax, rd.sm_count(0))
+    pos_s = pos.tolist() if B <= 8 else "drawn"
+    print(f"[kernel] {label} pos={pos_s} live_rows={rows} split={n_split}x"
+          f"{L}: max_abs_err={err:.3g} (limit {tol}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
 
-def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol):
-    B, Hq, Hkv, hd = 1, 14, 2, 64
+def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol,
+               Skv=None, hd=64):
+    B, Hq, Hkv = 1, 14, 2
+    Sq, Skv = S, Skv or S
     dev = "cuda"
     # the model's (B, S, H, hd) activations, passed as (B, H, S, hd) views
-    q = torch.randn(B, S, Hq, hd, generator=gen, device=dev).to(dt)
-    k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
-    v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt)
+    q = torch.randn(B, Sq, Hq, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Skv, Hkv, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Skv, Hkv, hd, generator=gen, device=dev).to(dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     launches0 = fa.launches
     out = fa.flash_attention(qt, kt, vt, causal=causal)
@@ -216,8 +231,9 @@ def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
     err = (out.float() - ref.float()).abs().max().item()
-    check(err <= tol, f"flash_attention {dt} S={S} causal={causal}: max abs "
-                      f"err {err} > {tol}")
+    label = (f"flash_attention {str(dt)[6:]} B={B} Sq={Sq} Skv={Skv} Hq={Hq} "
+             f"Hkv={Hkv} hd={hd} causal={causal}")
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
     ms = time_ms(torch, lambda: fa.flash_attention(qt, kt, vt,
                                                    causal=causal), flush)
     plain_ms = time_ms(torch, lambda: fa.attention_ref(qt, kt, vt,
@@ -228,13 +244,15 @@ def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol):
     fa.launches = launches0
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * es
-    pairs = S * (S + 1) // 2 if causal else S * S
+    # causal positions start at 0 on both sides: query i sees keys 0..i
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
     nops = 4 * B * Hq * hd * pairs
     bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
-    print(f"[kernel] flash_attention {str(dt)[6:]} B={B} S={S} Hq={Hq} "
-          f"Hkv={Hkv} hd={hd} causal={causal}: max_abs_err={err:.3g} "
-          f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+    print(f"[kernel] {label}: max_abs_err={err:.3g} (limit {tol}) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bms:.5f} ({by}) kernel/library="
+          f"{ms / lib_ms:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -506,18 +524,46 @@ def phase_kernels(torch, seed, peaks):
     bf16, f32 = torch.bfloat16, torch.float32
     # bf16 limit: N(0, 1) inputs, outputs up to ~4 in magnitude, one bf16
     # rounding of p and (flash) of the output; f32: summation order only
+    # the serving step first (its numbers go into the kernels line), then
+    # a short cache, one slot at the cache's end (the old grid gave it 2
+    # blocks), every slot at pos 0, positions at the chosen split's edges
+    # and past the cache, rep 16, hd 128; float32 last
+    rd_B, rd_Hkv, rd_Smax = 8, 2, 2048
+    _, L = rd.split_geometry(rd_B, rd_Hkv, rd_Smax, rd.sm_count(0))
+    edges = [L - 1, L, 2 * L - 1, rd_Smax, rd_Smax + 100, 0, 1, 63]
     rd_cases = [ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
-                                   2048, 2e-2),
+                                   rd_Smax, 2e-2),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
                                    1000, 2e-2),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, B=1, pos=[rd_Smax - 1]),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, pos=[0] * rd_B),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, pos=edges),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, Hq=32),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, hd=128),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, f32,
                                    1000, 1e-4)]
+    # the serving prompt's size first; then a shorter prompt, non-causal,
+    # the longest prompt the serve config admits, a single partial tile,
+    # hd 128, non-causal Sq != Skv; float32 last
     fa_cases = [flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
                            True, 2e-2),
                 flash_case(torch, F, fa, gen, peaks, flush, bf16, 512,
                            True, 2e-2),
                 flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
                            False, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 2048,
+                           True, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 17,
+                           True, 2e-2),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
+                           True, 2e-2, hd=128),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 100,
+                           False, 2e-2, Skv=1000),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
     # the serving chunk (a 4th chunk of 256 tokens), a first chunk with a
@@ -536,9 +582,9 @@ def phase_kernels(torch, seed, peaks):
     del flush
     # the line's numbers: the first case of each, the serving path's shape
     return {**paper, "ragged_decode": dict(rd_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in rd_cases if c is not rd_cases[2])),
+                c["max_abs_err"] for c in rd_cases[:-1])),
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in fa_cases if c is not fa_cases[3])),
+                c["max_abs_err"] for c in fa_cases[:-1])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in rp_cases[:3]))}
 
@@ -993,7 +1039,8 @@ def phase_runtime(torch, seed, card):
 
 def _profile_window(torch, fn, label: str, card: str, top: int = 8):
     """Run ``fn`` under torch.profiler; print device busy time against
-    wall time and the kernels that took most device time."""
+    wall time, the kernels that took most device time and the port's
+    kernels, each with its share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1017,8 +1064,12 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8):
         return
     print(f"[profile] {label}: wall {1e3 * wall:.3f} ms, device busy "
           f"{1e3 * busy:.3f} ms, idle share {1 - busy / wall:.3f} ({card})")
-    for dev_us, count, key in sorted(rows, reverse=True)[:top]:
-        print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    # the top kernels, and every kernel in an anonymous namespace (all
+    # of the port's, and some of PyTorch's), each with its share
+    for n, (dev_us, count, key) in enumerate(sorted(rows, reverse=True)):
+        if n < top or "(anonymous namespace)" in key:
+            print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x "
+                  f"{dev_us / 1e6 / busy:6.1%}  {key[:90]}")
 
 
 def phase_profile(torch, np, model, params, reqs, card):

@@ -4,9 +4,11 @@ Every ``kernels/<name>/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  Each source
 compiles in its own ``nvcc`` process, all started together, and one link
-step joins them.  The library lands in ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the sources: it is built at first use
-and again whenever a source changes.
+step joins them.  Headers (``*.cuh`` anywhere under ``kernels/``) are
+found through one ``-I`` per directory that holds them.  The library
+lands in ``build/repro_torch/`` at the root of the checkout, named by a
+hash of the sources and headers: it is built at first use and again
+whenever either changes.
 
 A missing ``nvcc`` or a failed build raises; the ops never fall back to
 their plain versions for a CUDA tensor.
@@ -37,6 +39,10 @@ def sources() -> list[pathlib.Path]:
     return sorted(_KERNELS.glob("*/csrc/*.cu"))
 
 
+def headers() -> list[pathlib.Path]:
+    return sorted(_KERNELS.glob("**/*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -50,9 +56,10 @@ def _nvcc() -> str:
 
 
 def _digest(srcs) -> str:
+    """Hash of the given sources, every header and the flags."""
     h = hashlib.sha256()
-    for p in srcs:
-        h.update(p.name.encode())
+    for p in [*srcs, *headers()]:
+        h.update(str(p.relative_to(_KERNELS)).encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -83,8 +90,9 @@ def build() -> pathlib.Path:
     objdir = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
     objs = [objdir / f"{p.parent.parent.name}_{p.stem}.o" for p in srcs]
-    _run_all([[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
-              for s, o in zip(srcs, objs)])
+    incs = [f"-I{d}" for d in sorted({str(h.parent) for h in headers()})]
+    _run_all([[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *incs, "-c", str(s), "-o",
+               str(o)] for s, o in zip(srcs, objs)])
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs),
                "-o", str(tmp)]])
@@ -97,8 +105,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ragged_decode_launch.argtypes = [
         I,                 # dtype code (see dtype_code)
-        P, P, P, P, P,     # q, k, v, pos, out
+        P, P, P, P, P, P,  # q, k, v, pos, out, scratch
         I, I, I, I, I,     # B, Smax, Hkv, rep, hd
+        I, I,              # n_split, L (ops.split_geometry)
         F,                 # scale
         P]                 # stream
     lib.ragged_decode_launch.restype = I

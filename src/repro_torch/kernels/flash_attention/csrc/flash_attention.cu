@@ -9,61 +9,328 @@
 // 4 * (Hq + Hkv) * S * hd bytes (bf16 q, k, v and output), about
 // 0.44 * S operations per byte at qwen2-0.5b's heads: past the ~295 at
 // which the tensor cores, not HBM, are the limit once S exceeds ~700.
-// This first version is written for being right and simple, not for the
-// tensor cores:
-//   * one block per (64-row query tile, query head, batch); four threads
-//     share a query row, each owning every fourth element of hd, so a score
-//     is four partial dot products joined by two warp shuffles;
-//   * K/V tiles of 64 (32 at hd 128) rows are staged in shared memory as
-//     f32 and read without bank conflicts;
-//   * query head h reads kv head h / rep directly: no K/V head is
-//     replicated in memory;
-//   * causal tiles strictly above the diagonal are never loaded, and the
-//     heaviest query tiles are scheduled first;
-//   * prompts of any length: the ragged last query and key tiles are
-//     masked in the kernel (the TPU kernel asserted Sq % bq == 0);
-//   * tensors are addressed through (batch, head, seq) strides with hd
-//     contiguous, so the model passes (B, S, H, hd) activations as
-//     transposed views and nothing is copied in or out.
-// The next step is the tensor cores (mma / wgmma on bf16 tiles).
+// So the bf16 route is built to run on the tensor cores at Hopper's rate:
+//   * one block per (64-row query tile, query head, batch); query head h
+//     reads kv head h / rep directly (no K/V head is replicated).  A
+//     causal prompt of 1000 tokens gives only 224 such tiles for 132 SMs,
+//     so each block holds two warpgroups (256 threads) that share the Q
+//     tile and take alternate key tiles, each with its own online softmax,
+//     merging (m, l, O) through shared memory at the end: twice the warps
+//     per SM, half the serial chain;
+//   * causal work is uneven (a query tile costs its index + 1 key tiles),
+//     so blocks take the heaviest tiles of all heads first, and when every
+//     block is resident at once the second block dispatched to an SM is a
+//     light one: the busiest SM's share drops toward the mean;
+//   * TMA loads the Q tile once and, per warpgroup, 64-row K/V tiles into
+//     a 2-stage ring with mbarriers, one elected thread issuing them one
+//     tile ahead of the math (a third stage measured no faster).  The
+//     tensor maps address the operands through their (batch, head, seq)
+//     strides with hd contiguous, so the model's (B, S, H, hd) activations
+//     pass as transposed views and nothing is copied in or out; ragged
+//     tiles are zero-filled by TMA;
+//   * 128-byte swizzle (a 64-wide bf16 row is exactly 128 bytes; hd 128 is
+//     two such boxes), read by wgmma through shared-memory descriptors;
+//   * S = Q K^T as wgmma m64n64k16 with Q and K from shared memory
+//     (K-major); the online softmax runs on the f32 accumulator fragment;
+//     P is rounded to bf16 in registers and is wgmma's register A operand
+//     for O += P V, with V read from shared memory as the MN-major B
+//     operand (the descriptor's transpose); the softmax works in log2
+//     units, one FFMA and one ex2 per score (the softmax, not the tensor
+//     cores, is what the per-SM issue rate spends most on);
+//   * only the causal diagonal tile and the ragged last tiles are masked;
+//     causal tiles above the diagonal are never loaded;
+//   * shared memory is Q plus two rings of K/V: 73 KB at hd 64 (two
+//     blocks per SM, as the registers allow), 145 KB at hd 128, above the
+//     default 48 KB: the limit is raised once per instantiation.
+// float32 keeps a CUDA-core kernel (below), routed by type: there are no
+// f32 tensor cores without TF32, and the f32 check does not allow TF32.
+// The wrapper refuses bf16 operands whose base or strides TMA cannot take
+// (not 16-byte multiples, or hd not contiguous).
 //
 // Semantics follow the TPU kernel: scores dot(q, k) * scale in f32, masked
 // to -1e30 above the diagonal (both positions start at 0); p is rounded to
 // the input type before the PV product; output acc / max(l, 1e-30) in the
-// input type.
+// input type.  Any Sq and Skv.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using bf16 = __nv_bfloat16;
 
 // element strides of (batch, head, seq) for q, k, v, out; hd is contiguous
 struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
 
-// Grid (ceil(Sq / BQ), Hq, B), 4 * BQ threads.
-template <typename T, int HD, int BQ, int BK>
+// ------------------------------------------------------------------ bf16
+
+constexpr int kRows = 64;          // query rows per block, keys per tile
+constexpr int kBox = kRows * 64;   // elements of one 64 x 64 TMA box
+constexpr int kStages = 2;         // K/V ring depth per warpgroup
+
+// Which logical axis (0 seq, 1 head, 2 batch) each of a tensor map's dims
+// 1..3 is: the host orders them by stride.
+struct MapAxes {
+  int a[3];
+};
+
+__device__ __forceinline__ int axis_coord(int which, int s, int h, int b) {
+  return which == 0 ? s : (which == 1 ? h : b);
+}
+
+// A 64 x HD tile of `map` at (seq s, head h, batch b) into `dst`: HD / 64
+// boxes of 64 x 64, each 128-byte swizzled.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
+                                          const MapAxes& ax, uint64_t* bar,
+                                          int s, int h, int b) {
+#pragma unroll
+  for (int box = 0; box < HD / 64; ++box)
+    sm90::tma_load_4d(dst + box * kBox, map, bar, box * 64,
+                      axis_coord(ax.a[0], s, h, b),
+                      axis_coord(ax.a[1], s, h, b),
+                      axis_coord(ax.a[2], s, h, b));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Grid (ceil(Sq / 64) * Hq * B), 256 threads: two warpgroups share the Q
+// tile and take alternate key tiles (even, odd), each with its own ring
+// and online softmax; they merge (m, l, O) through shared memory at the
+// end.  Block k takes work item k, heaviest query tiles first; with
+// pair_from > 0 (causal, every block resident at once) blocks pair_from..
+// take the remaining items lightest first, so that the second block on an
+// SM is light where the first is heavy.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, MapAxes qax,
+                 MapAxes kax, MapAxes vax, bf16* __restrict__ out,
+                 long long os_b, long long os_h, long long os_s, int Hq,
+                 int Hkv, int Sq, int Skv, int causal, float scale_log2,
+                 int B, int pair_from) {
+  constexpr int NO = HD / 2;                 // O accumulators per thread
+  constexpr int kTile = kRows * HD;          // elements of a 64-row tile
+  constexpr int kTileBytes = kTile * 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_kv[2][kStages];
+  // 128-byte swizzle atoms repeat every 1024 bytes: align the tiles to it
+  bf16* q_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* kv_s = q_s + kTile;                  // [wg][stage][K, V][tile]
+  auto stage_s = [&](int w, int i) {
+    return kv_s + (w * kStages + i % kStages) * 2 * kTile;
+  };
+
+  int item = blockIdx.x;
+  if (pair_from > 0 && item >= pair_from)
+    item = gridDim.x - 1 - (item - pair_from);
+  const int n_q = (Sq + kRows - 1) / kRows;
+  const int qi = n_q - 1 - item / (Hq * B);
+  const int h = item % Hq, b = item / Hq % B;
+  const int g = h / (Hq / Hkv);
+  const int q0 = qi * kRows;
+  const int k_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int n_tiles = (k_end + kRows - 1) / kRows;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int lane = tid & 31, warp = wtid >> 5;
+  const int n_mine = (n_tiles - wg + 1) / 2;  // tiles wg, wg + 2, ...
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_q, 1);
+    for (int i = 0; i < 2 * kStages; ++i)
+      sm90::mbar_init(&bar_kv[i / kStages][i % kStages], 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  // this warpgroup's i-th key tile into its stage i % kStages
+  auto load_kv = [&](int i) {
+    uint64_t* bar = &bar_kv[wg][i % kStages];
+    bf16* dst = stage_s(wg, i);
+    const int t = wg + 2 * i;
+    sm90::mbar_expect_tx(bar, 2 * kTileBytes);
+    load_tile<HD>(dst, &kmap, kax, bar, t * kRows, g, b);
+    load_tile<HD>(dst + kTile, &vmap, vax, bar, t * kRows, g, b);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_q, kTileBytes);
+    load_tile<HD>(q_s, &qmap, qax, &bar_q, q0, h, b);
+  }
+  if (wtid == 0)
+    for (int i = 0; i < kStages - 1 && i < n_mine; ++i) load_kv(i);
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // m is kept in log2 units: scores times scale * log2(e)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[32];                               // overwritten by each S = Q K^T
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  const int r_lo = warp * 16 + (lane >> 2);  // fragment rows r_lo, r_lo + 8
+  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
+  sm90::mbar_wait(&bar_q, 0);
+
+  for (int i = 0; i < n_mine; ++i) {
+    // the stage of tile i + kStages - 1 was freed at the end of tile i - 1
+    if (wtid == 0 && i + kStages - 1 < n_mine) load_kv(i + kStages - 1);
+    sm90::mbar_wait(&bar_kv[wg][i % kStages], (i / kStages) & 1);
+    const bf16* kt = stage_s(wg, i);
+    const bf16* vt = kt + kTile;
+
+    // S = Q K^T (64 x 64), 16 columns of hd per step
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk / 4) * kBox + (kk % 4) * 16;
+      sm90::wgmma_ss_m64n64k16(s, sm90::wgmma_desc_sw128(q_s + off, 16, 1024),
+                               sm90::wgmma_desc_sw128(kt + off, 16, 1024),
+                               kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sm90::reg_fence(s[j]);
+
+    // online softmax on the fragment: s[4j + e] is row r_lo + 8 (e / 2),
+    // key k0 + 8j + 2 (lane % 4) + e % 2
+    const int k0 = (wg + 2 * i) * kRows;
+    const bool masked = k0 + kRows > Skv || (causal && k0 + kRows - 1 > q0);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * r + e];
+          if (masked) {
+            const int kpos = k0 + 8 * j + 2 * (lane & 3) + e;
+            if (kpos >= Skv || (causal && kpos > qpos[r])) x = kNegInf;
+          }
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      corr[r] = fast_exp2(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p =
+              fast_exp2(fmaf(s[4 * j + 2 * r + e], scale_log2, -m_new));
+          s[4 * j + 2 * r + e] = p;
+          sum += p;
+        }
+      l[r] = l[r] * corr[r] + sum;
+      m[r] = m_new;
+    }
+    // P rounded to bf16 as wgmma's register A operand, 16 keys per step
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = sm90::pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+
+    // O += P V
+#pragma unroll
+    for (int j = 0; j < NO; ++j) sm90::reg_fence(o[j]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // V rows kk*16.. (K of the product), hd the MN dim: 8-row groups
+      // 1024 B apart, the two 64-wide halves of hd 128 one box apart
+      const uint64_t dv =
+          sm90::wgmma_desc_sw128(vt + kk * 16 * 64, kBox * 2, 1024);
+      if constexpr (HD == 64)
+        sm90::wgmma_rs_m64n64k16(o, pa[kk], dv, 1);
+      else
+        sm90::wgmma_rs_m64n128k16(o, pa[kk], dv, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NO; ++j) sm90::reg_fence(o[j]);
+    // this warpgroup's stage is free again
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(~0u, l[r], 1);
+    l[r] += __shfl_xor_sync(~0u, l[r], 2);
+  }
+  // merge: warpgroup 1 hands its (m, l, O) over in fragment order
+  __syncthreads();                           // every tile has been read
+  float* x_o = reinterpret_cast<float*>(kv_s);   // [NO][128]
+  float* x_ml = x_o + NO * 128;                  // [4][128]: m0 m1 l0 l1
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) x_o[j * 128 + wtid] = o[j];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      x_ml[r * 128 + wtid] = m[r];
+      x_ml[(2 + r) * 128 + wtid] = l[r];
+    }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  float c0[2], c1[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = x_ml[r * 128 + wtid], l1 = x_ml[(2 + r) * 128 + wtid];
+    const float M = fmaxf(m[r], m1);
+    c0[r] = fast_exp2(m[r] - M);
+    c1[r] = fast_exp2(m1 - M);
+    inv[r] = 1.f / fmaxf(c0[r] * l[r] + c1[r] * l1, 1e-30f);
+  }
+  bf16* ob = out + b * os_b + h * os_h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= Sq) continue;
+    bf16* orow = ob + qpos[r] * os_s + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int a = 4 * j + 2 * r;
+      const float y0 = (c0[r] * o[a] + c1[r] * x_o[a * 128 + wtid]) * inv[r];
+      const float y1 =
+          (c0[r] * o[a + 1] + c1[r] * x_o[(a + 1) * 128 + wtid]) * inv[r];
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(y0, y1);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ f32
+// Grid (ceil(Sq / BQ), Hq, B), 4 * BQ threads: four threads share a query
+// row, each owning every fourth element of hd; K/V tiles in shared memory.
+template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(4 * BQ)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq,
-                       int Hkv, int Sq, int Skv, Strides st, int causal,
-                       float scale) {
+flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int Hq,
+          int Hkv, int Sq, int Skv, Strides st, int causal, float scale) {
   constexpr int kThreads = 4 * BQ;
   constexpr int DPT = HD / 4;                     // hd elements per thread
   __shared__ float k_s[BK][HD];
@@ -75,14 +342,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, row = tid >> 2, quad = tid & 3;
   const int q_start = qi * BQ, qpos = q_start + row;
 
-  const T* qp = q + b * st.q[0] + h * st.q[1];
-  const T* kp = k + b * st.k[0] + g * st.k[1];
-  const T* vp = v + b * st.v[0] + g * st.v[1];
+  const float* qp = q + b * st.q[0] + h * st.q[1];
+  const float* kp = k + b * st.k[0] + g * st.k[1];
+  const float* vp = v + b * st.v[0] + g * st.v[1];
 
   float qr[DPT], acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = qpos < Sq ? to_f(qp[qpos * st.q[2] + i * 4 + quad]) : 0.f;
+    qr[i] = qpos < Sq ? qp[qpos * st.q[2] + i * 4 + quad] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -96,8 +363,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < BK * HD; e += kThreads) {
       const int j = e / HD, d = e % HD, kr = k0 + j;
       const bool live = kr < Skv;
-      k_s[j][d] = live ? to_f(kp[kr * st.k[2] + d]) : 0.f;
-      v_s[j][d] = live ? to_f(vp[kr * st.v[2] + d]) : 0.f;
+      k_s[j][d] = live ? kp[kr * st.k[2] + d] : 0.f;
+      v_s[j][d] = live ? vp[kr * st.v[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -122,7 +389,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - m_new);
       lsum += p;
-      s[j] = to_f(from_f<T>(p));                  // PV takes p in T
+      s[j] = p;
     }
     l = l * corr + lsum;
     m = m_new;
@@ -137,29 +404,135 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qpos < Sq) {
-    T* op = out + b * st.o[0] + h * st.o[1] + qpos * st.o[2];
+    float* op = out + b * st.o[0] + h * st.o[1] + qpos * st.o[2];
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) op[i * 4 + quad] = from_f<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i) op[i * 4 + quad] = acc[i] * inv;
   }
 }
 
-template <typename T, int HD, int BQ, int BK>
-void launch(const void* q, const void* k, const void* v, void* out, int B,
-            int Hq, int Hkv, int Sq, int Skv, const Strides& st, int causal,
-            float scale, cudaStream_t stream) {
+template <int HD, int BQ, int BK>
+void launch_f32(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Sq, int Skv, const Strides& st,
+                int causal, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<T, HD, BQ, BK><<<grid, 4 * BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Skv, st,
-      causal, scale);
+  flash_f32<HD, BQ, BK><<<grid, 4 * BQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
+      Skv, st, causal, scale);
+}
+
+// ---------------------------------------------------------- tensor maps
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 (batch, head, seq, hd) operand with element strides st (batch,
+// head, seq) and hd contiguous as a 4-D tensor map of 64 x 64 boxes
+// (hd x seq), 128-byte swizzle, out-of-range rows read as zeros.  The
+// outer dims go in order of stride; `ax` says which is which.
+bool make_map(CUtensorMap* map, MapAxes* ax, const void* base, int B, int H,
+              int S, int hd, const long long* st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  struct Dim {
+    cuuint64_t size, stride;
+    cuuint32_t box;
+    int which;
+  } d[3] = {{cuuint64_t(S), cuuint64_t(st[2]) * 2, kRows, 0},
+            {cuuint64_t(H), cuuint64_t(st[1]) * 2, 1, 1},
+            {cuuint64_t(B), cuuint64_t(st[0]) * 2, 1, 2}};
+  // a dim of size 1 is never stepped: give it the largest stride
+  cuuint64_t top = cuuint64_t(hd) * 2;
+  for (const Dim& x : d)
+    if (x.size > 1 && x.stride > top) top = x.stride;
+  for (Dim& x : d)
+    if (x.size == 1) x.stride = top;
+  for (int i = 1; i < 3; ++i)                      // insertion sort, stable
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  const cuuint64_t dims[4] = {cuuint64_t(hd), d[0].size, d[1].size,
+                              d[2].size};
+  const cuuint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
+  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) ax->a[i] = d[i].which;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int Hq, int Hkv, int Sq, int Skv,
+                        const Strides& st, int causal, float scale,
+                        cudaStream_t stream) {
+  // align + Q + 2 warpgroups x kStages x (K, V)
+  constexpr int kSmem = 1024 + (1 + 4 * kStages) * kRows * HD * 2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bf16_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap qm, km, vm;
+  MapAxes qa, ka, va;
+  if (!make_map(&qm, &qa, q, B, Hq, Sq, HD, st.q) ||
+      !make_map(&km, &ka, k, B, Hkv, Skv, HD, st.k) ||
+      !make_map(&vm, &va, v, B, Hkv, Skv, HD, st.v))
+    return cudaErrorInvalidValue;
+  // all blocks resident at once (a causal prompt up to ~2k tokens at
+  // qwen2-0.5b's heads): pair heavy and light query tiles on an SM
+  static int sms = 0, per_sm = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_bf16_wgmma<HD>, 256, kSmem);
+  }
+  const long long items = 1LL * ((Sq + kRows - 1) / kRows) * Hq * B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int pair_from = causal && items <= 1LL * sms * per_sm ? sms : 0;
+  flash_bf16_wgmma<HD><<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
+      qm, km, vm, qa, ka, va, static_cast<bf16*>(out), st.o[0], st.o[1],
+      st.o[2], Hq, Hkv, Sq, Skv, causal, scale * 1.4426950408889634f, B,
+      pair_from);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; strides: 12 element strides, (batch, head,
 // seq) of q, k, v, out in that order.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take).
+// launch (cudaErrorInvalidValue for a shape the kernel does not take, or a
+// bf16 operand TMA cannot address).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int hd,
@@ -175,19 +548,21 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     st.o[i] = strides[9 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   if (dtype == 0 && hd == 64)
-    launch<float, 64, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                              scale, s);
+    launch_f32<64, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                           scale, s);
   else if (dtype == 0 && hd == 128)
-    launch<float, 128, 64, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                               scale, s);
+    launch_f32<128, 64, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                            scale, s);
   else if (dtype == 1 && hd == 64)
-    launch<__nv_bfloat16, 64, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                                      causal, scale, s);
+    err = launch_bf16<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                          scale, s);
   else if (dtype == 1 && hd == 128)
-    launch<__nv_bfloat16, 128, 64, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                                       causal, scale, s);
+    err = launch_bf16<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                           scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,10 @@ operands through strides (only hd must be contiguous), so the model passes
 its (B, S, H, hd) activations as ``transpose(1, 2)`` views, and the output
 is allocated in (B, Sq, Hq, hd) memory order and returned as the same kind
 of view: the model's ``out.transpose(1, 2).reshape(B, S, Hq * hd)`` then
-copies nothing.  There is no switch and no fallback: a tensor on the card
-launches ``csrc/flash_attention.cu`` or raises.  ``launches`` counts the
+copies nothing.  bf16 operands are read by TMA, which needs a 16-byte
+aligned base and (batch, head, seq) strides of whole 16-byte units: the op
+raises on any other.  There is no switch and no fallback: a tensor on the
+card launches ``csrc/flash_attention.cu`` or raises.  ``launches`` counts the
 kernel launches of this process; a caller may reset it to 0.
 """
 
@@ -34,6 +36,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     return _launch(q, k, v, causal)
+
+
+def check_tma(t: torch.Tensor, name: str) -> None:
+    """Raise unless TMA can address the bf16 operand ``t`` (B, H, S, hd):
+    hd contiguous, base and every stepped stride 16-byte multiples."""
+    es = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} must be contiguous along hd")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base address not 16-byte aligned")
+    for i in range(3):
+        if t.shape[i] > 1 and (t.stride(i) * es) % 16:
+            raise ValueError(f"{name}: stride {t.stride(i)} of dim {i} is "
+                             f"not a multiple of 16 bytes")
 
 
 def _launch(q, k, v, causal):
@@ -62,6 +78,8 @@ def _launch(q, k, v, causal):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along hd")
+        if t.dtype == torch.bfloat16:
+            check_tma(t, name)
     code = _build.dtype_code(q.dtype)
     lib = _build.library()
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype,

@@ -3,12 +3,19 @@ the plain version for a CPU tensor.
 
 Counterpart of ``repro/kernels/ragged_decode/ops.py``.  There is no switch
 and no fallback: a tensor on the card launches
-``csrc/ragged_decode.cu`` or raises.  ``launches`` counts the kernel
-launches of this process; a caller may reset it to 0.
+``csrc/ragged_decode.cu`` or raises.  ``launches`` counts the op's calls
+on the card (each runs the split pass and the combine); a caller may reset
+it to 0.
+
+The kernel splits each slot's cache sweep across blocks
+(flash-decoding).  ``split_geometry`` chooses the split from the shapes
+and the card's SM count alone, never from ``pos``, so a call costs no host
+sync: one allocation of scratch beside the output, two launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,6 +26,25 @@ from .ref import ragged_decode_ref
 launches = 0
 MAX_REP = 16                 # query heads per kv head the kernel takes
 HEAD_DIMS = (64, 128)        # head widths the kernel is built for
+SPLIT_TILE = 64              # a split's length is a multiple of this
+BLOCKS_PER_SM = 2            # split-pass blocks per SM the split aims at
+
+
+def split_geometry(B: int, Hkv: int, Smax: int, sms: int
+                   ) -> tuple[int, int]:
+    """(n_split, L): the cache rows [i * L, (i + 1) * L) form split i, for
+    i < n_split; L is a multiple of ``SPLIT_TILE`` and every split starts
+    inside the cache.  About ``BLOCKS_PER_SM`` blocks per SM when every
+    slot is full (B=8, Hkv=2, Smax=2048 on 132 SMs: 16 splits of 128)."""
+    want = -(-BLOCKS_PER_SM * sms // (B * Hkv))
+    L = -(-Smax // want)
+    L = -(-L // SPLIT_TILE) * SPLIT_TILE
+    return -(-Smax // L), L
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -65,12 +91,17 @@ def _launch(q, k_cache, v_cache, pos):
             raise ValueError(f"{name} must be contiguous")
     code = _build.dtype_code(q.dtype)
     lib = _build.library()
+    rep = Hq // Hkv
+    n_split, L = split_geometry(B, Hkv, Smax, sm_count(q.device.index))
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(B * Hkv * n_split * rep * (hd + 2),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.ragged_decode_launch(
             code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, Smax, Hkv, Hq // Hkv, hd,
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+            pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, Smax, Hkv,
+            rep, hd, n_split, L, 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ragged_decode")
     launches += 1
     return out

@@ -12,6 +12,8 @@ take the plain path for CPU tensors and refuse any other device.  The
 """
 
 import dataclasses
+import math
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +91,79 @@ def test_ragged_decode_ignores_rows_past_pos():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+# The CUDA kernel splits each slot's cache into splits of L rows (chosen on
+# the host from the shapes and the SM count), runs an online softmax per
+# split and merges the splits by log-sum-exp.  The mirror below repeats
+# that arithmetic in plain torch (per-split max, p rounded to the cache
+# type against it, the merge) and is held against the JAX reference.
+
+def _split_merge_mirror(q, k, v, pos, L):
+    B, Hq, hd = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    out = torch.zeros(B, Hq, hd)
+    for b in range(B):
+        last = min(int(pos[b]), Smax - 1)
+        for g in range(Hkv):
+            qg = q[b, g * rep:(g + 1) * rep].float()
+            ms, ls, accs = [], [], []
+            for start in range(0, last + 1, L):
+                end = min(start + L, last + 1)
+                s = qg @ k[b, start:end, g].float().T / math.sqrt(hd)
+                m = s.max(dim=1, keepdim=True).values
+                p = torch.exp(s - m)
+                ms.append(m)
+                ls.append(p.sum(dim=1, keepdim=True))
+                accs.append(p.to(v.dtype).float() @ v[b, start:end, g].float())
+            M = torch.stack(ms).max(dim=0).values
+            c = [torch.exp(m - M) for m in ms]
+            num = sum(ci * a for ci, a in zip(c, accs))
+            den = sum(ci * li for ci, li in zip(c, ls))
+            out[b, g * rep:(g + 1) * rep] = num / den.clamp_min(1e-30)
+    return out
+
+
+SPLIT_SMAX, SPLIT_SMS = 256, 16          # 4 splits of 64 at B=4, Hkv=2
+
+
+@pytest.mark.parametrize("edge", ("boundaries", "past_cache"))
+@pytest.mark.parametrize("hd", (64, 128))
+@pytest.mark.parametrize("rep", (7, 16))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_split_merge_mirror_matches_jax(dtype, rep, hd, edge):
+    B, Hkv, Smax = 4, 2, SPLIT_SMAX
+    n_split, L = rd.split_geometry(B, Hkv, Smax, SPLIT_SMS)
+    assert (n_split, L) == (4, 64)
+    pos = {"boundaries": (0, L - 1, L, 2 * L - 1),
+           "past_cache": (Smax + 7, Smax - 1, 2 * L, 1)}[edge]
+    rng = np.random.default_rng(rep * hd)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(_np(rng, *shape)).to(tdt) for shape in
+               ((B, Hkv * rep, hd), (B, Smax, Hkv, hd), (B, Smax, Hkv, hd)))
+    p = np.asarray(pos, np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(jax_rd_ref(*(jnp.asarray(t.float().numpy(), jdt)
+                                   for t in (q, k, v)), jnp.asarray(p)))
+    got = _split_merge_mirror(q, k, v, p, L).numpy()
+    tol = 2e-2 if dtype == "bfloat16" else TOL
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("sms", (132, 16))
+@pytest.mark.parametrize("Smax", (32, 1000, 2048))
+@pytest.mark.parametrize("B", (1, 8))
+def test_split_geometry_covers_each_row_once(B, Smax, sms):
+    n_split, L = rd.split_geometry(B, 2, Smax, sms)
+    assert L % rd.SPLIT_TILE == 0 and n_split >= 1
+    assert (n_split - 1) * L < Smax <= n_split * L   # no split starts past
+    owner = np.full(Smax, -1)
+    for i in range(n_split):
+        rows = owner[i * L:(i + 1) * L]
+        assert (rows == -1).all()
+        rows[:] = i
+    assert (owner >= 0).all()
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -142,6 +217,31 @@ def test_flash_attention_matches_blocked_attention(scheme, causal, S):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
 
+@pytest.mark.parametrize("layout,ok", (
+    ("bshd_view", True),         # the model's transposed activations
+    ("bhsd", True),
+    ("odd_heads", False),        # a head stride of 1601 elements
+    ("hd_strided", False),
+))
+def test_flash_tma_operand_check(layout, ok):
+    """bf16 operands go to TMA: base and stepped strides in 16-byte units,
+    hd contiguous; the op refuses anything else instead of copying."""
+    if layout == "bshd_view":
+        t = torch.zeros(1, 37, 14, 64, dtype=torch.bfloat16).transpose(1, 2)
+    elif layout == "bhsd":
+        t = torch.zeros(2, 2, 17, 64, dtype=torch.bfloat16)
+    elif layout == "odd_heads":
+        t = torch.zeros(1, 5, 2, 25 * 64 + 1,
+                        dtype=torch.bfloat16)[..., :64].transpose(1, 2)
+    else:
+        t = torch.zeros(1, 2, 9, 128, dtype=torch.bfloat16)[..., ::2]
+    if ok:
+        fa.check_tma(t, "q")
+    else:
+        with pytest.raises(ValueError):
+            fa.check_tma(t, "q")
+
+
 # ---------------------------------------------------------------------------
 # no fallback: a tensor that is not on the CPU launches or raises
 # ---------------------------------------------------------------------------
@@ -174,3 +274,21 @@ def test_build_names_library_by_source_hash():
         "stream_copy", "bitonic_sort"}
     assert len(_build._digest(srcs)) == 16
     assert _build._digest(srcs) != _build._digest(srcs[:1])
+
+
+@pytest.mark.parametrize("change", ("edit", "add"))
+def test_build_digest_covers_headers(monkeypatch, tmp_path, change):
+    """A header edited or added under kernels/ renames the library, so a
+    stale build is never loaded."""
+    assert any(h.name == "sm90.cuh" for h in _build.headers())
+    root = tmp_path / "kernels"
+    shutil.copytree(_build._KERNELS, root,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    monkeypatch.setattr(_build, "_KERNELS", root)
+    before = _build._digest(_build.sources())
+    if change == "edit":
+        hdr = root / "csrc" / "sm90.cuh"
+        hdr.write_text(hdr.read_text() + "// edited\n")
+    else:
+        (root / "ragged_decode" / "csrc" / "extra.cuh").write_text("#pragma once\n")
+    assert _build._digest(_build.sources()) != before
