@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero before the last line:
              also at the edges of their designs: ragged decode with one
              slot at the cache's end, every slot at 0, positions at the
              chosen split's edges and past the cache, rep 16, hd 128;
-             flash prefill at 2048 and 17 tokens, hd 128, Sq != Skv),
+             flash prefill at 2048 and 17 tokens, hd 128, Sq != Skv;
+             chunked prefill at the first and last chunks of a 2048-token
+             prompt, B=4, rep 16 and hd 128 over B=8 mixed starts; the
+             sort at the runtime's three row lengths with its kernel
+             launches per call counted, and past a cluster),
              with max abs error and
              limit, kernel / plain / library (SDPA) time from CUDA events
              with the L2 cache flushed before every launch, and the least
@@ -258,10 +262,10 @@ def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol,
 
 
 def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
-                        qlens, tol, timed):
-    """One chunk of T=256 tokens per slot at qwen2-0.5b's heads; ``timed``
-    also gives the kernel / plain / SDPA times and the bound."""
-    B, T, Hq, Hkv, hd = len(starts), 256, 14, 2, 64
+                        qlens, tol, timed, T=256, Hq=14, Hkv=2, hd=64):
+    """One chunk of T tokens per slot (qwen2-0.5b's heads unless given);
+    ``timed`` also gives the kernel / plain / SDPA times and the bound."""
+    B = len(starts)
     dev = "cuda"
     q = torch.randn(B, T, Hq, hd, generator=gen, device=dev).to(dt)
     k = torch.randn(B, Smax, Hkv, hd, generator=gen, device=dev).to(dt)
@@ -276,7 +280,7 @@ def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
     check(bool(torch.isfinite(out).all()), "ragged_prefill: non-finite")
     err = (out - ref).abs().max().item()
     label = (f"ragged_prefill {str(dt)[6:]} B={B} T={T} Smax={Smax} "
-             f"start={starts} qlen={qlens}")
+             f"Hq={Hq} Hkv={Hkv} hd={hd} start={starts} qlen={qlens}")
     check(err <= tol, f"{label}: max abs err {err} > {tol}")
     for b, n in enumerate(qlens):
         check(not bool(out[b, n:].any()), f"{label}: padded rows of slot "
@@ -304,9 +308,9 @@ def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, qlens))
     nops = 4 * Hq * hd * pairs
     bms, by = bound(peaks, nbytes, nops, dt == torch.bfloat16)
-    print(f"[kernel] {label} Hq={Hq} Hkv={Hkv} hd={hd}: ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"bound_ms={bms:.5f} ({by})")
+    print(f"[kernel] {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by}) "
+          f"kernel/library={ms / lib_ms:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -387,8 +391,9 @@ def copy_case(torch, sc, src, dst, s_lo, d_lo, m, label):
 def phase_paper_kernels(torch, gen, peaks, flush):
     """The runtime's three kernel classes and scale-add against their
     plain versions: the TAO shapes (64x64x64 f32 and a 16-row slice; the
-    16.8 MB int32 copy and chunks of it; sort rows of 65,536 and 21,845
-    int32) and ragged ones."""
+    16.8 MB int32 copy and chunks of it; sort rows of 65,536, 32,768,
+    21,845 and 16,384 int32) and ragged ones."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.bitonic_sort import ops as so
     from repro_torch.kernels.matmul import ops as mm
     from repro_torch.kernels.stream_copy import ops as sc
@@ -468,26 +473,46 @@ def phase_paper_kernels(torch, gen, peaks, flush):
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
 
-    # sort: the paper's row (65,536 int32, longer than shared memory), a
-    # row of 21,845 (65,536 / 3, padded to 32,768), rows on the
-    # shared-memory path, ragged and not
+    # sort: the runtime's rows at widths 1, 2, 3 and 4 (65,536, 32,768,
+    # 21,845, 16,384 int32: one cluster launch each), rows on one block and
+    # on clusters of 2 and of 8 full blocks, ragged and not, float32 with
+    # -0.0 and +-inf, and the multi-launch path of a row longer than a
+    # cluster holds (140,000)
     sort_stats = None
-    for dt, rows, m in ((i32, 1, 65536), (i32, 1, 21845), (f32, 8, 1024),
-                        (i32, 16, 5000), (f32, 2, 40000)):
+    for dt, rows, m, timed in (
+            (i32, 1, 65536, True), (i32, 1, 32768, True),
+            (i32, 1, 16384, True), (i32, 1, 21845, False),
+            (f32, 8, 1024, False), (i32, 16, 5000, False),
+            (f32, 2, 40000, False), (i32, 2, 70000, False),
+            (i32, 1, 140000, False)):
         if dt == i32:
             x = torch.randint(0, 1 << 30, (rows, m), generator=gen,
                               device=dev, dtype=i32)
         else:
             x = torch.randn(rows, m, generator=gen, device=dev)
+            x[:, :4] = torch.tensor([-0.0, float("inf"), 0.0, -float("inf")],
+                                    device=dev)
         launches0 = so.launches
         out = so.sort_rows(x)
         ref = so.sort_rows_ref(x)
         torch.cuda.synchronize()
+        plan = so.sort_plan(m)
+        # kernel launches of one call, counted where the library issues them
+        lib = _build.library()
+        issued0 = lib.bitonic_sort_kernel_launches()
+        so.sort_rows(x)
+        torch.cuda.synchronize()
+        dev_launches = lib.bitonic_sort_kernel_launches() - issued0
         so.launches = launches0
-        label = f"bitonic_sort {str(dt)[6:]} ({rows}, {m})"
+        label = (f"bitonic_sort {str(dt)[6:]} ({rows}, {m}) cluster "
+                 f"{plan.C} x {1 << plan.lb}")
         check(torch.equal(out, ref), f"{label}: differs from torch.sort")
-        print(f"[kernel] {label}: exact (limit 0)")
-        if sort_stats is not None:
+        check(dev_launches == plan.device_launches,
+              f"{label}: {dev_launches} kernel launches, the plan says "
+              f"{plan.device_launches}")
+        print(f"[kernel] {label}: exact (limit 0), {dev_launches} kernel "
+              f"launch{'es' if dev_launches > 1 else ''} per call")
+        if not timed:
             continue
         o = torch.empty_like(x)
         ms = time_ms(torch, lambda: so.sort_rows(x, out=o), flush)
@@ -503,9 +528,11 @@ def phase_paper_kernels(torch, gen, peaks, flush):
               f"library_ms={lib_ms:.4f} (torch.sort) bound_ms={bms:.6f} "
               f"({by}: {2 * x.numel() * 4} bytes at {peaks[0]:.4g} B/s; "
               f"{comparisons} comparisons, n ceil(log2 n), at "
-              f"{peaks[3]:.4g} min/max per s)")
-        sort_stats = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+              f"{peaks[3]:.4g} min/max per s) kernel/library="
+              f"{ms / lib_ms:.2f}")
+        if sort_stats is None:
+            sort_stats = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bms, bound_by=by, library_ms=lib_ms)
     return {"matmul": dict(mm_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in mm_cases[:3])),
             "stream_copy": copy_stats,
@@ -566,16 +593,32 @@ def phase_kernels(torch, seed, peaks):
                            False, 2e-2, Skv=1000),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
-    # the serving chunk (a 4th chunk of 256 tokens), a first chunk with a
-    # ragged tail, mixed slots (one empty, one ending at the cache edge),
-    # and float32
+    # the serving chunk (a 4th chunk of 256 tokens), the first and the last
+    # chunk of a 2048-token prompt, four serving chunks at once (B=4), a
+    # first chunk with a ragged tail, mixed slots (one empty, one ending at
+    # the cache edge), rep 16 and hd 128 over B=8 mixed starts, the same
+    # at T=77 (a tile's tokens and the cache not multiples), and float32
     rp_cases = [ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     2048, [768], [256], 2e-2, True),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [0], [256], 2e-2, True),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [1792], [256], 2e-2, True),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [768] * 4, [256] * 4, 2e-2, True),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     2048, [0], [97], 2e-2, False),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     2048, [0, 512, 1948, 1200],
                                     [256, 0, 100, 37], 2e-2, False),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [0, 300, 700, 1000, 1500, 1792, 5,
+                                           64],
+                                    [256, 256, 200, 0, 256, 256, 1, 63],
+                                    2e-2, True, Hq=32, hd=128),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    333, [0, 256], [77, 77], 2e-2, False,
+                                    T=77, Hq=32, hd=128),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     1000, [300, 0], [256, 5], 1e-4, False)]
     paper = phase_paper_kernels(torch, gen, peaks, flush)
@@ -586,7 +629,7 @@ def phase_kernels(torch, seed, peaks):
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fa_cases[:-1])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in rp_cases[:3]))}
+                c["max_abs_err"] for c in rp_cases[:-1]))}
 
 
 # ---------------------------------------------------------------------------
@@ -1037,10 +1080,15 @@ def phase_runtime(torch, seed, card):
     return main_launches
 
 
+# the redesigned kernels' device functions, summed in the profile windows
+PROFILE_GROUPS = {"ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
+                  "bitonic_sort": ("sort_cluster", "global_step")}
+
+
 def _profile_window(torch, fn, label: str, card: str, top: int = 8):
     """Run ``fn`` under torch.profiler; print device busy time against
     wall time, the kernels that took most device time and the port's
-    kernels, each with its share."""
+    kernels, each with its share, and each redesigned kernel's sum."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1070,6 +1118,13 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8):
         if n < top or "(anonymous namespace)" in key:
             print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x "
                   f"{dev_us / 1e6 / busy:6.1%}  {key[:90]}")
+    for name, parts in PROFILE_GROUPS.items():
+        got = [(d, c) for d, c, k in rows if any(p in k for p in parts)]
+        if got:
+            d = sum(x[0] for x in got)
+            print(f"[profile]   {name}: {d / 1e3:.3f} ms of device time in "
+                  f"{sum(x[1] for x in got)} launches, {d / 1e6 / busy:.1%} "
+                  f"of the window's")
 
 
 def phase_profile(torch, np, model, params, reqs, card):

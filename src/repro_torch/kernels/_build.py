@@ -147,10 +147,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, P, P,           # src, work (or null), out
         I, L,              # rows, n
         L, L, L,           # row strides of src, work, out
+        I, I,              # lb, C (ops.sort_plan)
         P]                 # stream
     lib.bitonic_sort_launch.restype = I
-    lib.bitonic_sort_tile.argtypes = []
-    lib.bitonic_sort_tile.restype = I
+    lib.bitonic_sort_kernel_launches.argtypes = []
+    lib.bitonic_sort_kernel_launches.restype = L
     lib.cuda_error_string.argtypes = [I]
     lib.cuda_error_string.restype = ctypes.c_char_p
 

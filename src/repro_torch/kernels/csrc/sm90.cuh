@@ -1,11 +1,14 @@
-// PTX helpers shared by the port's Hopper (sm_90a) kernels: cp.async,
+// Helpers shared by the port's Hopper (sm_90a) kernels: cp.async,
 // ldmatrix and mma.sync (the warp-level tensor-core path), mbarriers, TMA
-// tile loads and wgmma (the warpgroup-level one).  Device code only; the
+// tile loads and wgmma (the warpgroup-level one), the exp2 of the online
+// softmax, and on the host the tensor maps that TMA reads through.  The
 // kernels include it by name (the build adds this directory with -I).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <cstdint>
 
 namespace sm90 {
@@ -31,6 +34,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma and TMA read through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ------------------------------------------------------ ldmatrix, mma.sync
@@ -120,6 +135,34 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A (batch, head, seq, hd) bf16 operand read by TMA in 64 x 64 boxes
+// (64 of hd by 64 of seq): which logical axis (0 seq, 1 head, 2 batch) each
+// of its tensor map's dims 1..3 is, as make_map ordered them by stride.
+constexpr int kBoxRows = 64;
+constexpr int kBoxElems = kBoxRows * 64;
+
+struct MapAxes {
+  int a[3];
+};
+
+__device__ __forceinline__ int axis_coord(int which, int s, int h, int b) {
+  return which == 0 ? s : (which == 1 ? h : b);
+}
+
+// A 64 x HD tile of `map` at (seq s, head h, batch b) into `dst`: HD / 64
+// boxes of 64 x 64, each 128-byte swizzled, kBoxElems apart.
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const CUtensorMap* map,
+                                          const MapAxes& ax, uint64_t* bar,
+                                          int s, int h, int b) {
+#pragma unroll
+  for (int box = 0; box < HD / 64; ++box)
+    tma_load_4d(dst + box * kBoxElems, map, bar, box * 64,
+                axis_coord(ax.a[0], s, h, b), axis_coord(ax.a[1], s, h, b),
+                axis_coord(ax.a[2], s, h, b));
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -237,6 +280,74 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------ host: tensor maps
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 (batch, head, seq, hd) operand with element strides st (batch,
+// head, seq) and hd contiguous as a 4-D tensor map of 64 x 64 boxes
+// (hd x seq), 128-byte swizzle, out-of-range rows read as zeros.  The
+// outer dims go in order of stride; `ax` says which is which.
+inline bool make_map(CUtensorMap* map, MapAxes* ax, const void* base, int B,
+                     int H, int S, int hd, const long long* st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  struct Dim {
+    cuuint64_t size, stride;
+    cuuint32_t box;
+    int which;
+  } d[3] = {{cuuint64_t(S), cuuint64_t(st[2]) * 2, kBoxRows, 0},
+            {cuuint64_t(H), cuuint64_t(st[1]) * 2, 1, 1},
+            {cuuint64_t(B), cuuint64_t(st[0]) * 2, 1, 2}};
+  // a dim of size 1 is never stepped: give it the largest stride
+  cuuint64_t top = cuuint64_t(hd) * 2;
+  for (const Dim& x : d)
+    if (x.size > 1 && x.stride > top) top = x.stride;
+  for (Dim& x : d)
+    if (x.size == 1) x.stride = top;
+  for (int i = 1; i < 3; ++i)                      // insertion sort, stable
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  const cuuint64_t dims[4] = {cuuint64_t(hd), d[0].size, d[1].size,
+                              d[2].size};
+  const cuuint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
+  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) ax->a[i] = d[i].which;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

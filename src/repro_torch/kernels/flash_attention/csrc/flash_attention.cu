@@ -71,38 +71,12 @@ struct Strides {
 // ------------------------------------------------------------------ bf16
 
 constexpr int kRows = 64;          // query rows per block, keys per tile
-constexpr int kBox = kRows * 64;   // elements of one 64 x 64 TMA box
+constexpr int kBox = sm90::kBoxElems;  // elements of one 64 x 64 TMA box
 constexpr int kStages = 2;         // K/V ring depth per warpgroup
 
-// Which logical axis (0 seq, 1 head, 2 batch) each of a tensor map's dims
-// 1..3 is: the host orders them by stride.
-struct MapAxes {
-  int a[3];
-};
-
-__device__ __forceinline__ int axis_coord(int which, int s, int h, int b) {
-  return which == 0 ? s : (which == 1 ? h : b);
-}
-
-// A 64 x HD tile of `map` at (seq s, head h, batch b) into `dst`: HD / 64
-// boxes of 64 x 64, each 128-byte swizzled.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
-                                          const MapAxes& ax, uint64_t* bar,
-                                          int s, int h, int b) {
-#pragma unroll
-  for (int box = 0; box < HD / 64; ++box)
-    sm90::tma_load_4d(dst + box * kBox, map, bar, box * 64,
-                      axis_coord(ax.a[0], s, h, b),
-                      axis_coord(ax.a[1], s, h, b),
-                      axis_coord(ax.a[2], s, h, b));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::fast_exp2;
+using sm90::load_tile;
+using sm90::MapAxes;
 
 // Grid (ceil(Sq / 64) * Hq * B), 256 threads: two warpgroups share the Q
 // tile and take alternate key tiles (even, odd), each with its own ring
@@ -422,73 +396,7 @@ void launch_f32(const void* q, const void* k, const void* v, void* out,
       Skv, st, causal, scale);
 }
 
-// ---------------------------------------------------------- tensor maps
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library links no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A bf16 (batch, head, seq, hd) operand with element strides st (batch,
-// head, seq) and hd contiguous as a 4-D tensor map of 64 x 64 boxes
-// (hd x seq), 128-byte swizzle, out-of-range rows read as zeros.  The
-// outer dims go in order of stride; `ax` says which is which.
-bool make_map(CUtensorMap* map, MapAxes* ax, const void* base, int B, int H,
-              int S, int hd, const long long* st) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  struct Dim {
-    cuuint64_t size, stride;
-    cuuint32_t box;
-    int which;
-  } d[3] = {{cuuint64_t(S), cuuint64_t(st[2]) * 2, kRows, 0},
-            {cuuint64_t(H), cuuint64_t(st[1]) * 2, 1, 1},
-            {cuuint64_t(B), cuuint64_t(st[0]) * 2, 1, 2}};
-  // a dim of size 1 is never stepped: give it the largest stride
-  cuuint64_t top = cuuint64_t(hd) * 2;
-  for (const Dim& x : d)
-    if (x.size > 1 && x.stride > top) top = x.stride;
-  for (Dim& x : d)
-    if (x.size == 1) x.stride = top;
-  for (int i = 1; i < 3; ++i)                      // insertion sort, stable
-    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
-      const Dim t = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = t;
-    }
-  const cuuint64_t dims[4] = {cuuint64_t(hd), d[0].size, d[1].size,
-                              d[2].size};
-  const cuuint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
-  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) ax->a[i] = d[i].which;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// ---------------------------------------------------------------- launch
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
@@ -503,9 +411,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return attr;
   CUtensorMap qm, km, vm;
   MapAxes qa, ka, va;
-  if (!make_map(&qm, &qa, q, B, Hq, Sq, HD, st.q) ||
-      !make_map(&km, &ka, k, B, Hkv, Skv, HD, st.k) ||
-      !make_map(&vm, &va, v, B, Hkv, Skv, HD, st.v))
+  if (!sm90::make_map(&qm, &qa, q, B, Hq, Sq, HD, st.q) ||
+      !sm90::make_map(&km, &ka, k, B, Hkv, Skv, HD, st.k) ||
+      !sm90::make_map(&vm, &va, v, B, Hkv, Skv, HD, st.v))
     return cudaErrorInvalidValue;
   // all blocks resident at once (a causal prompt up to ~2k tokens at
   // qwen2-0.5b's heads): pair heavy and light query tiles on an SM

@@ -4,9 +4,11 @@ tensor, the plain version for a CPU tensor.
 Counterpart of ``repro/kernels/ragged_prefill/ops.py``, with the same
 ``(B, T, Hq, hd)`` layout at the public function.  The kernel folds GQA by
 index (query head ``g * rep + r`` of token ``t`` is folded row ``t * rep +
-r`` of kv head ``g``), so q is read, and the output written, in the
-model's own layout: the TPU wrapper's transposes are gone.  There is no
-switch and no fallback: a tensor on the card launches
+r`` of kv head ``g``) into 64-row tiles, so q is read, and the output
+written, in the model's own layout: the TPU wrapper's transposes are gone.
+The bf16 route reads the caches by TMA, which needs a 16-byte aligned base:
+the op raises on any other, and on a q whose base is not 16-byte aligned.
+There is no switch and no fallback: a tensor on the card launches
 ``csrc/ragged_prefill.cu`` or raises.  ``launches`` counts the kernel
 launches of this process; a caller may reset it to 0.
 """
@@ -18,6 +20,7 @@ import math
 import torch
 
 from .. import _build
+from ..flash_attention.ops import check_tma
 from .ref import ragged_prefill_ref
 
 launches = 0
@@ -76,6 +79,11 @@ def _launch(q, k_cache, v_cache, start, qlen):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     code = _build.dtype_code(q.dtype)
+    if q.dtype == torch.bfloat16:
+        if q.data_ptr() % 16:
+            raise ValueError("q: base address not 16-byte aligned")
+        check_tma(k_cache.transpose(1, 2), "k_cache")
+        check_tma(v_cache.transpose(1, 2), "v_cache")
     lib = _build.library()
     out = torch.empty((B, T, Hq, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

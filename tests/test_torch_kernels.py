@@ -8,7 +8,7 @@ in float32 (the two sides sum in different orders).  The CUDA kernels
 themselves run only on the card (``chip_smoke.py``); here the wrappers must
 take the plain path for CPU tensors and refuse any other device.  The
 ``ragged_prefill`` plain version is held against JAX in
-``test_torch_disagg.py``.
+``test_torch_disagg.py``; here a mirror of its CUDA kernel's tiling is.
 """
 
 import dataclasses
@@ -25,6 +25,9 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.ragged_decode import ops as jax_rd_ops
 from repro.kernels.ragged_decode.ref import ragged_decode_ref as jax_rd_ref
+from repro.kernels.ragged_prefill import force_pallas as jax_rp_force_pallas
+from repro.kernels.ragged_prefill import ragged_prefill_attention as jax_rp
+from repro.kernels.ragged_prefill.ref import ragged_prefill_ref as jax_rp_ref
 from repro.models.layers import blocked_attention
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa
@@ -162,6 +165,154 @@ def test_split_geometry_covers_each_row_once(B, Smax, sms):
         assert (rows == -1).all()
         rows[:] = i
     assert (owner >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# ragged prefill: the tensor-core kernel's tiling
+# ---------------------------------------------------------------------------
+
+# The bf16 CUDA kernel folds GQA into 64-row tiles (row i of kv head g is
+# token i // rep, query head g * rep + i % rep), stops each tile at its
+# causal horizon, gives alternate 64-key tiles to two warpgroups with an
+# online softmax each (p rounded to the cache's type), masks only key
+# tiles that cross the smallest horizon of the tile's rows, and merges the
+# warpgroups.  The mirror below follows that order in plain torch;
+# ``visits`` counts each (row, key) pair whose p it computes.
+
+PREFILL_TILE = 64       # the kernel's folded rows and keys a tile (kRows)
+
+
+def _prefill_tile_mirror(q, k, v, start, qlen, visits=None):
+    B, T, Hq, hd = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    rep, tile_rows = Hq // Hkv, PREFILL_TILE
+    rows = T * rep
+    neg = -1e30
+    out = torch.zeros(B, T, Hq, hd)
+    for b, g in np.ndindex(B, Hkv):
+        s0, ql = int(start[b]), int(qlen[b])
+        for i0 in range(0, rows, tile_rows):
+            gi = torch.arange(i0, i0 + tile_rows)
+            inrow = gi < rows
+            t = torch.where(inrow, gi // rep, 0)
+            h = g * rep + gi % rep
+            qt = torch.where(inrow[:, None], q[b, t, h].float(), 0.0)
+            t_first = i0 // rep
+            t_end = (min(i0 + tile_rows, rows) - 1) // rep
+            n_keys = (min(s0 + min(t_end, ql - 1) + 1, Smax)
+                      if t_first < ql else 0)
+            n_kt = -(-n_keys // tile_rows)
+            tile_lim = (min(s0 + t_first, Smax - 1)
+                        if i0 + tile_rows <= rows and t_end < ql else -1)
+            lim = torch.where(inrow & (t < ql), (s0 + t).clamp(max=Smax - 1),
+                              -1)
+            wgs = []
+            for wg in (0, 1):
+                m = torch.full((tile_rows, 1), neg)
+                l = torch.zeros(tile_rows, 1)
+                acc = torch.zeros(tile_rows, hd)
+                for kt in range(wg, n_kt, 2):
+                    keys = torch.arange(kt * tile_rows, (kt + 1) * tile_rows)
+                    live = keys < Smax          # past the cache: TMA zeros
+                    kk = torch.where(live[:, None],
+                                     k[b, keys.clamp(max=Smax - 1), g]
+                                     .float(), 0.0)
+                    vv = torch.where(live[:, None],
+                                     v[b, keys.clamp(max=Smax - 1), g]
+                                     .float(), 0.0)
+                    sc = qt @ kk.T / math.sqrt(hd)
+                    mask = torch.zeros_like(sc, dtype=torch.bool)
+                    if keys[-1] > tile_lim:
+                        mask = keys[None, :] > lim[:, None]
+                    sc = sc.masked_fill(mask, neg)
+                    m_new = torch.maximum(m, sc.max(dim=1,
+                                                    keepdim=True).values)
+                    p = torch.exp(sc - m_new).masked_fill(mask, 0.0)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(dim=1, keepdim=True)
+                    acc = acc * corr + p.to(v.dtype).float() @ vv
+                    m = m_new
+                    if visits is not None:
+                        for r in torch.nonzero(inrow).flatten():
+                            seen = keys[~mask[r] & live]
+                            visits[b, g, i0 + r, seen] += 1
+                wgs.append((m, l, acc))
+            (m0, l0, a0), (m1, l1, a1) = wgs
+            M = torch.maximum(m0, m1)
+            c0, c1 = torch.exp(m0 - M), torch.exp(m1 - M)
+            y = (c0 * a0 + c1 * a1) / (c0 * l0 + c1 * l1).clamp_min(1e-30)
+            y = torch.where((t < ql)[:, None], y, 0.0)
+            out[b, t[inrow], h[inrow]] = y[inrow]
+    return out
+
+
+# (T, Smax, starts, qlens): "mixed" holds a full chunk from 0, a chunk
+# ending at the cache's edge, an empty slot (qlen 0) and a partial chunk,
+# T = 37 not a multiple of a tile's tokens at rep 7 or 16, Smax = 150 not
+# a multiple of a key tile; "deep" holds chunks late in a longer cache, so
+# both warpgroups take several key tiles and the masked tiles are the last
+PREFILL_SETS = {"mixed": (37, 150, (0, 113, 50, 20), (37, 37, 0, 11)),
+                "deep": (20, 400, (330, 380), (20, 17))}
+_prefill_want = {}
+
+
+def _prefill_case(dtype, rep, hd, inputs):
+    """Inputs and the JAX package's answers (jnp oracle, Pallas kernel in
+    interpret mode), made once per configuration."""
+    key = (dtype, rep, hd, inputs)
+    if key not in _prefill_want:
+        T, Smax, starts, qlens = PREFILL_SETS[inputs]
+        B, Hkv = len(starts), 2
+        rng = np.random.default_rng(rep * hd + Smax)
+        tdt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(_np(rng, *shape)).to(tdt) for shape in
+                   ((B, T, Hkv * rep, hd), (B, Smax, Hkv, hd),
+                    (B, Smax, Hkv, hd)))
+        start = np.asarray(starts, np.int32)
+        qlen = np.asarray(qlens, np.int32)
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        jargs = (*(jnp.asarray(t.float().numpy(), jdt) for t in (q, k, v)),
+                 jnp.asarray(start), jnp.asarray(qlen))
+        want_ref = np.asarray(jax_rp_ref(*jargs), np.float32)
+        with jax_rp_force_pallas():        # Pallas kernel, interpret mode
+            want_pallas = np.asarray(jax_rp(*jargs, block_k=16), np.float32)
+        _prefill_want[key] = (q, k, v, start, qlen, want_ref, want_pallas)
+    return _prefill_want[key]
+
+
+@pytest.mark.parametrize("inputs", ("mixed", "deep"))
+@pytest.mark.parametrize("hd", (64, 128))
+@pytest.mark.parametrize("rep", (7, 16))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_prefill_tile_mirror_matches_jax(dtype, rep, hd, inputs):
+    q, k, v, start, qlen, want_ref, want_pallas = _prefill_case(dtype, rep,
+                                                                hd, inputs)
+    got = _prefill_tile_mirror(q, k, v, start, qlen).numpy()
+    tol = 2e-2 if dtype == "bfloat16" else TOL
+    np.testing.assert_allclose(got, want_ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(got, want_pallas, atol=tol, rtol=0)
+    for b, n in enumerate(qlen):
+        assert not got[b, n:].any()                      # exact zeros
+
+
+@pytest.mark.parametrize("inputs", ("mixed", "deep"))
+@pytest.mark.parametrize("rep", (1, 7, 16))
+def test_prefill_tiles_visit_each_causal_pair_once(rep, inputs):
+    """Every (row, key) pair the causal mask allows is computed exactly
+    once, by one of the two warpgroups, and none past it."""
+    T, Smax, starts, qlens = PREFILL_SETS[inputs]
+    B, Hkv, hd = len(starts), 2, 8
+    rng = np.random.default_rng(rep)
+    q, k, v = (torch.from_numpy(_np(rng, *shape)) for shape in
+               ((B, T, Hkv * rep, hd), (B, Smax, Hkv, hd),
+                (B, Smax, Hkv, hd)))
+    visits = torch.zeros(B, Hkv, T * rep, Smax, dtype=torch.int32)
+    _prefill_tile_mirror(q, k, v, starts, qlens, visits)
+    keys = torch.arange(Smax)
+    for b, (s0, ql) in enumerate(zip(starts, qlens)):
+        t = torch.arange(T * rep) // rep
+        allowed = (keys[None, :] <= s0 + t[:, None]) & (t[:, None] < ql)
+        assert torch.equal(visits[b], allowed.int()[None].expand(Hkv, -1, -1))
 
 
 # ---------------------------------------------------------------------------

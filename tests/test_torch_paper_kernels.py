@@ -144,6 +144,126 @@ def test_sort_rows_of_any_length(rows, n):
                                   np.sort(x, axis=-1))
 
 
+# The CUDA kernel runs the bitonic network on chip by the wrapper's plan
+# (``so.sort_plan``): a row padded to 2^p sorts in one cluster of C blocks
+# of 2^lb elements; each thread holds 2^W elements in registers, and each
+# stage's steps run in windows of W index bits, the block moving its data
+# through shared memory into the layout whose register bits are the
+# window's; strides of a block or more pair whole blocks of the cluster.
+# Longer rows add steps in device memory.  The mirror below repeats that
+# plan in numpy, with the kernel's shift-and-mask indices, on int32 keys
+# (floats as x ^ ((x >> 31) & 0x7fffffff)).
+
+def _keys(x: np.ndarray, is_float: bool) -> np.ndarray:
+    """int32 keys of float32 bits in the floats' order, and back (an
+    involution); int32 as they are."""
+    k = x.view(np.int32)
+    return k ^ ((k >> 31) & 0x7FFFFFFF) if is_float else k
+
+
+def _cluster_pass(buf, plan, s_lo, s_hi):
+    """One launch of the cluster kernel over every cluster-sized chunk of
+    buf: stages s_lo .. s_hi, the steps whose strides are below a chunk."""
+    W, lb = so.REG_LOG2, plan.lb
+    R = 1 << W
+    lc, N = plan.span_log2, 1 << lb
+    T = N >> W
+    t = np.arange(T)[:, None]
+    r = np.arange(R)[None, :]
+    for g0 in range(0, len(buf), 1 << lc):
+        blocks = buf[g0:g0 + (1 << lc)].reshape(plan.C, N)   # shared memory
+        for s in range(s_lo, s_hi + 1):
+            for b in range(min(s, lc) - 1, lb - 1, -1):       # cluster steps
+                old = blocks.copy()
+                for c in range(plan.C):
+                    partner = c ^ (1 << (b - lb))
+                    lower = (c >> (b - lb)) & 1 == 0
+                    asc = ((g0 + (c << lb)) >> s) & 1 == 0
+                    pick = np.minimum if lower == asc else np.maximum
+                    blocks[c] = pick(old[c], old[partner])
+            top = min(s, lb) - 1
+            for a in range(top // W * W, -1, -W):             # windows
+                ap = min(a, lb - W)
+                hi, lo = min(top, a + W - 1) - ap, a - ap
+                idx = (((t >> ap) << (ap + W)) | (t & ((1 << ap) - 1))
+                       | (r << ap))
+                assert np.array_equal(np.sort(idx, axis=None), np.arange(N))
+                for c in range(plan.C):
+                    v = blocks[c][idx]                        # registers
+                    d = -((((g0 + (c << lb)) | idx) >> s) & 1).astype(
+                        np.int32)
+                    v ^= d                                    # flip
+                    for bb in range(W - 1, -1, -1):
+                        if lo <= bb <= hi:
+                            rl = [x for x in range(R) if not x & (1 << bb)]
+                            rh = [x | (1 << bb) for x in rl]
+                            x, y = v[:, rl], v[:, rh]
+                            v[:, rl], v[:, rh] = (np.minimum(x, y),
+                                                  np.maximum(x, y))
+                    blocks[c][idx] = v ^ d
+
+
+def _sort_mirror(x: np.ndarray) -> np.ndarray:
+    n = len(x)
+    plan = so.sort_plan(n)
+    lc = plan.span_log2
+    pad = 0x7F800000 if x.dtype == np.float32 else np.iinfo(np.int32).max
+    buf = np.full(max(1 << plan.p, 1 << lc), pad, np.int32)
+    buf[:n] = _keys(x, x.dtype == np.float32)
+    _cluster_pass(buf, plan, 1, min(plan.p, lc))
+    for st in range(lc + 1, plan.p + 1):     # longer rows
+        for b in range(st - 1, lc - 1, -1):  # a step in device memory
+            p = np.arange(len(buf) // 2)
+            i = ((p >> b) << (b + 1)) | (p & ((1 << b) - 1))
+            j = i | (1 << b)
+            asc = (i >> st) & 1 == 0
+            lo, hi = np.minimum(buf[i], buf[j]), np.maximum(buf[i], buf[j])
+            buf[i], buf[j] = np.where(asc, lo, hi), np.where(asc, hi, lo)
+        _cluster_pass(buf, plan, st, st)
+    return _keys(buf[:n].copy(), x.dtype == np.float32).view(x.dtype)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 21845, 16384, 32768, 65536,
+                               140000])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_sort_step_plan_mirror_matches_jax(n, dtype):
+    """The plan in numpy equals np.sort and the JAX reference, for rows on
+    one block, on clusters of 4 and 8, and past a cluster (140,000)."""
+    rng = np.random.default_rng(n)
+    if dtype == "int32":
+        x = rng.integers(-(1 << 31), (1 << 31) - 1, n,
+                         endpoint=True).astype(np.int32)
+        x[: min(n, 2)] = np.iinfo(np.int32).max      # equal to the padding
+    else:
+        x = rng.standard_normal(n).astype(np.float32)
+        x[: min(n, 4)] = np.float32([-0.0, np.inf, 0.0, -np.inf])[:min(n, 4)]
+    got = _sort_mirror(x)
+    np.testing.assert_array_equal(got, np.sort(x))
+    np.testing.assert_array_equal(got, np.asarray(jax_sort_ref(x[None]))[0])
+
+
+@pytest.mark.parametrize("n,launches", [
+    (1, 1), (3, 1), (1000, 1), (4096, 1), (8192, 1), (16384, 1),
+    (21845, 1), (32768, 1), (65536, 1), (70000, 1), (131072, 1),
+    (131073, 3), (262144, 3), (1 << 20, 10)])
+def test_sort_plan_one_launch_up_to_a_cluster(n, launches):
+    """A row sorts in one device launch while its padded length fits a
+    cluster (131,072 4-byte elements in 8 x 64 KB); the runtime's rows at
+    widths 1, 2 and 4 (65,536, 32,768, 16,384) spread over 8, 8 and 4
+    blocks of at least 4,096."""
+    plan = so.sort_plan(n)
+    assert plan.device_launches == launches
+    assert (n <= 1 << plan.span_log2) == (launches == 1)
+    assert plan.C in (1, 2, 4, 8)
+    assert so.BLOCK_MIN_LOG2 <= plan.lb <= so.BLOCK_MAX_LOG2
+    assert plan.lb - so.REG_LOG2 >= 5                  # whole warps
+    want_c = {16384: 4, 32768: 8, 65536: 8}
+    if n in want_c:
+        assert plan.C == want_c[n] and 1 << plan.span_log2 == n
+    if n <= 4096:
+        assert plan.C == 1
+
+
 def test_sort_out_writes_a_chunk():
     src = torch.from_numpy(np.random.default_rng(2).integers(
         0, 1 << 30, 3000).astype(np.int32))
