@@ -16,14 +16,18 @@ Phases, in order; any failure exits non-zero before the last line:
              chosen split's edges and past the cache, rep 16, hd 128;
              flash prefill at 2048 and 17 tokens, hd 128, Sq != Skv;
              chunked prefill at the first and last chunks of a 2048-token
-             prompt, B=4, rep 16 and hd 128 over B=8 mixed starts; the
-             sort at the runtime's three row lengths with its kernel
-             launches per call counted, and past a cluster),
-             with max abs error and
+             prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
+             chunks crossing, starting at and starting past the cache's
+             end; the matmul on the TAO product and its 16- and 32-row
+             slices, each timed beside ``torch.matmul`` on the same rows,
+             and on unaligned and ragged shapes; the sort at the
+             runtime's three row lengths with its kernel launches per
+             call counted, and past a cluster), with max abs error and
              limit, kernel / plain / library (SDPA) time from CUDA events
-             with the L2 cache flushed before every launch, and the least
+             with the L2 cache flushed before every launch, the least
              time the card could take (bytes over memory rate or
-             operations over peak rate, whichever is larger);
+             operations over peak rate, whichever is larger), and the
+             launch floor (an empty kernel under the same timing);
 4. serve   — qwen2-0.5b at full width, random weights from the seed,
              through ``ServeEngine``: 16 requests with prompts of 64-1024
              tokens and 64 new tokens each, over 8 slots in chunks of 4;
@@ -53,7 +57,8 @@ Phases, in order; any failure exits non-zero before the last line:
              as its tasks' widths sum to, every output right (matmul
              within 1e-5 relative, copy exact, sort exact per chunk); it
              prints tasks/s, makespan, placements by width and the trained
-             PTT, and profiles one run.
+             PTT, and profiles one run (each kernel class's device time
+             in it).
 
 The kernels phase also holds the runtime's kernels and ``stream_scale_add``
 against their plain versions (``torch.matmul``, ``dst.copy_(src)``, the
@@ -354,17 +359,20 @@ def matmul_case(torch, mm, gen, peaks, flush, dt, M, K, N, tol, timed,
           f"+ {tol * math.sqrt(K):.3g} absolute)")
     if not timed:
         return dict(max_abs_err=err)
-    o = torch.empty(M, N, dtype=dt, device=dev)
-    ms = time_ms(torch, lambda: mm.matmul(x, y, out=o), flush)
-    plain_ms = time_ms(torch, lambda: mm.matmul_ref(x, y), flush)
-    lib_ms = time_ms(torch, lambda: torch.matmul(x, y), flush)
+    # a slice is timed as the TAO body runs it: x[lo:hi] into out[lo:hi]
+    lo, hi = rows or (0, M)
+    xs, o = x[lo:hi], torch.empty(M, N, dtype=dt, device=dev)[lo:hi]
+    ms = time_ms(torch, lambda: mm.matmul(xs, y, out=o), flush)
+    plain_ms = time_ms(torch, lambda: mm.matmul_ref(xs, y), flush)
+    lib_ms = time_ms(torch, lambda: torch.matmul(xs, y), flush)
     mm.launches = launches0
-    es = x.element_size()
-    bms, by = bound(peaks, (M * K + K * N + M * N) * es, 2 * M * N * K,
+    es, m = x.element_size(), hi - lo
+    bms, by = bound(peaks, (m * K + K * N + m * N) * es, 2 * m * N * K,
                     dt == torch.bfloat16)
     print(f"[kernel] {label}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} (torch.matmul, TF32 off) "
-          f"bound_ms={bms:.5f} ({by})")
+          f"library_ms={lib_ms:.4f} (torch.matmul on the same rows, TF32 "
+          f"off) bound_ms={bms:.7f} ({by}) kernel/library="
+          f"{ms / lib_ms:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -399,14 +407,33 @@ def phase_paper_kernels(torch, gen, peaks, flush):
     from repro_torch.kernels.stream_copy import ops as sc
     bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     dev = "cuda"
+    # the TAO product (64x64x64, width 1) and its row slices at widths 4
+    # (16 rows) and 2 (32 rows), each timed; the slices of width 3 (21 and
+    # 22 rows, not multiples of the kernel's 16-row tile), a ragged shape
+    # with unaligned rows, a single row, and the large products; bfloat16
+    # last
     mm_cases = [matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
                             1e-4, True),
                 matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
-                            1e-4, False, rows=(16, 32)),
+                            1e-4, True, rows=(16, 32)),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
+                            1e-4, True, rows=(32, 64)),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
+                            1e-4, False, rows=(0, 21)),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 64, 64, 64,
+                            1e-4, False, rows=(42, 64)),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 37, 19, 23,
+                            1e-4, False),
+                matmul_case(torch, mm, gen, peaks, flush, f32, 1, 64, 64,
+                            1e-4, False),
                 matmul_case(torch, mm, gen, peaks, flush, f32, 1000, 700,
                             300, 1e-4, False),
                 matmul_case(torch, mm, gen, peaks, flush, bf16, 1000, 700,
                             300, 2e-2, False)]
+    # the launch floor: an empty kernel under the same timing
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    print(f"[kernel] launch floor: torch.cuda._sleep(1) ms={floor_ms:.4f} "
+          f"under the same timing as every case")
 
     # copy: the paper's 16.8 MB of int32, whole and as a TAO chunk at
     # width 3 (16-byte aligned, as every chunk of it is up to width 7);
@@ -534,7 +561,7 @@ def phase_paper_kernels(torch, gen, peaks, flush):
             sort_stats = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                               bound_ms=bms, bound_by=by, library_ms=lib_ms)
     return {"matmul": dict(mm_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in mm_cases[:3])),
+                c["max_abs_err"] for c in mm_cases[:-1])),
             "stream_copy": copy_stats,
             "stream_scale_add": sa_stats,
             "bitonic_sort": sort_stats}
@@ -619,6 +646,20 @@ def phase_kernels(torch, seed, peaks):
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     333, [0, 256], [77, 77], 2e-2, False,
                                     T=77, Hq=32, hd=128),
+                # past the cache (a prompt longer than max_seq, chunked):
+                # a chunk crossing Smax, one starting at Smax, and B=4 with
+                # both, one past Smax and a ragged tail over the edge
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [2048 - 20], [64], 2e-2, False,
+                                    T=64),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [2048], [64], 2e-2, False, T=64),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    2048, [2048 - 20, 2048, 2100, 2000],
+                                    [64, 64, 30, 60], 2e-2, False, T=64),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
+                                    1000, [980, 1000], [64, 64], 1e-4, False,
+                                    T=64),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     1000, [300, 0], [256, 5], 1e-4, False)]
     paper = phase_paper_kernels(torch, gen, peaks, flush)
@@ -629,7 +670,7 @@ def phase_kernels(torch, seed, peaks):
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fa_cases[:-1])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in rp_cases[:-1]))}
+                c["max_abs_err"] for c in rp_cases[:-2]))}
 
 
 # ---------------------------------------------------------------------------
@@ -1082,7 +1123,8 @@ def phase_runtime(torch, seed, card):
 
 # the redesigned kernels' device functions, summed in the profile windows
 PROFILE_GROUPS = {"ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
-                  "bitonic_sort": ("sort_cluster", "global_step")}
+                  "bitonic_sort": ("sort_cluster", "global_step"),
+                  "matmul": ("matmul_kernel",)}
 
 
 def _profile_window(torch, fn, label: str, card: str, top: int = 8):

@@ -4,14 +4,18 @@ version for a CPU tensor.
 Counterpart of ``repro/kernels/matmul/ops.py``.  Any ``(M, K) x (K, N)``:
 the TPU wrapper's tiling assertion does not carry over.  ``out=`` writes
 the product into a given tensor, which may be a row slice of a larger
-one, so the runtime's TAO bodies write their rows in place.  There is no
-switch and no fallback: a tensor on the card launches ``csrc/matmul.cu``
-or raises.  ``launches`` counts the kernel launches of this process (one
-per call); a caller may reset it to 0.
+one, so the runtime's TAO bodies write their rows in place.
+``TilePlan`` says how the kernel cuts a product: one block per 16 x 16
+tile of the output, 64 threads each owning a 1 x 4 strip, K walked in
+tiles of 64 through a 3-stage ring.  There is no switch and no fallback:
+a tensor on the card launches ``csrc/matmul.cu`` or raises.  ``launches``
+counts the kernel launches of this process (one per call); a caller may
+reset it to 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
@@ -22,6 +26,43 @@ from .ref import matmul_ref
 launches = 0
 # worker threads launch concurrently; the counts rise under this lock
 _count_lock = threading.Lock()
+
+# the kernel's constants (csrc/matmul.cu): kBM, kBN, kBK, kStages, kThreads
+BM, BN, BK, STAGES, THREADS = 16, 16, 64, 3, 64
+STRIP = 4                    # output columns of one thread
+MAX_GRID_Y = 65535           # CUDA's limit on gridDim.y (the n tiles)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the kernel computes an (M, K) x (K, N) product: block (bx, by)
+    of ``grid`` owns out[bx*BM : (bx+1)*BM, by*BN : (by+1)*BN] (clipped at
+    the edges); its thread t owns row ``t // (BN // STRIP)`` of that tile
+    and the STRIP columns from ``(t % (BN // STRIP)) * STRIP``, summing
+    over ``k_tiles`` tiles of BK in k order."""
+    M: int
+    N: int
+    K: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return -(-self.M // BM), -(-self.N // BN)
+
+    @property
+    def k_tiles(self) -> int:
+        return -(-self.K // BK)
+
+    def strips(self):
+        """Every thread's strip that lies in the output: (row, first
+        column, columns), in block and thread order."""
+        gx, gy = self.grid
+        for bx in range(gx):
+            for by in range(gy):
+                for t in range(THREADS):
+                    r = bx * BM + t // (BN // STRIP)
+                    c = by * BN + (t % (BN // STRIP)) * STRIP
+                    if r < self.M and c < self.N:
+                        yield r, c, min(STRIP, self.N - c)
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
@@ -68,6 +109,8 @@ def _launch(x, y, out, out_dtype, shape):
         return out
     if K == 0:
         return out.zero_()
+    if TilePlan(M, N, K).grid[1] > MAX_GRID_Y:
+        raise ValueError(f"matmul takes N <= {MAX_GRID_Y * BN}; got {N}")
     code, out_code = _build.dtype_code(x.dtype), _build.dtype_code(out_dtype)
     lib = _build.library()
     with torch.cuda.device(x.device):

@@ -36,8 +36,9 @@ def ragged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, T, Hq, hd) — chunk token ``i`` of slot ``b`` is at absolute
     position ``start[b] + i``; k,v: (B, Smax, Hkv, hd) caches already
     holding the chunk's K/V rows; start, qlen: (B,) int32 (chunk origin and
-    live rows, ``start + qlen <= Smax``).  Returns (B, T, Hq, hd) float32
-    with rows ``i >= qlen[b]`` exact zeros."""
+    live rows).  A chunk may cross or start past the cache's end: a query
+    at ``start + i >= Smax`` attends to all ``Smax`` rows.  Returns (B, T,
+    Hq, hd) float32 with rows ``i >= qlen[b]`` exact zeros."""
     if q.device.type == "cpu":
         return ragged_prefill_ref(q, k_cache, v_cache, start, qlen)
     return _launch(q, k_cache, v_cache, start, qlen)

@@ -198,12 +198,13 @@ def attention_decode_inplace(cfg: ModelConfig, p: Attention,
     """One-token attention that writes the token's K/V into the STACKED
     (L, B, Smax, Hkv, hd) caches in place and returns the attention output.
 
-    ``pos`` may be a scalar or a per-slot ``(B,)`` vector.  A position
-    past the cache writes the cache's last row, where the reference's
-    out-of-bounds scatter drops the write.  Only the surplus steps of a
-    decode chunk that runs past ``max_seq`` do that: the engine discards
-    their tokens, frees the slot, and the slot's next occupant overwrites
-    all of it, so the difference is never read."""
+    ``pos`` may be a scalar or a per-slot ``(B,)`` vector.  A slot at
+    ``pos >= Smax`` writes nothing, as the reference's out-of-bounds
+    scatter drops the write: that slot's row index is clamped to the
+    cache's last row, and the row takes back its own old value.  The
+    clamped row is read: a prompt of exactly ``max_seq`` tokens decodes
+    its first token at ``pos == max_seq``, and the query attends to the
+    prompt's last row.  No host sync: the path stays capturable."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = x.to(cdt)
     B = x.shape[0]
@@ -211,11 +212,15 @@ def attention_decode_inplace(cfg: ModelConfig, p: Attention,
     positions = pos_vec[:, None]
     q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
     batch_ix = torch.arange(B, device=x.device)
-    row = pos_vec.clamp(max=kfull.shape[2] - 1).long()
+    Smax = kfull.shape[2]
+    row = pos_vec.clamp(max=Smax - 1).long()
+    live = (pos_vec < Smax)[:, None, None]
     kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Smax, Hkv, hd)
     # slot indices are distinct: nothing is written twice
-    kl[batch_ix, row] = k[:, 0].to(kl.dtype)
-    vl[batch_ix, row] = v[:, 0].to(vl.dtype)
+    kl[batch_ix, row] = torch.where(live, k[:, 0].to(kl.dtype),
+                                    kl[batch_ix, row])
+    vl[batch_ix, row] = torch.where(live, v[:, 0].to(vl.dtype),
+                                    vl[batch_ix, row])
     out = decode_attention(cfg, q, kl, vl, pos_vec)
     return out @ p.wo
 
@@ -247,12 +252,16 @@ def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
     attention output.  ``x``: (B, T, D); ``positions``: (B, T) int32
     absolute positions (``start[:, None] + arange(T)``).
 
-    Padded rows (``i >= qlen[b]``) must not reach the cache, where the
+    Padded rows (``i >= qlen[b]``) and rows at or past the cache
+    (``start[b] + i >= Smax``) must not reach the cache, where the
     reference drops them with an out-of-bounds scatter.  Here every row
     ``i`` writes row ``(start[b] + i) % Smax``: for ``T <= Smax`` those
-    rows are distinct within a slot, the live ones take the chunk's K/V,
-    and each padded one takes back its own old value, gathered before the
-    write.  That is exact, and needs no host sync."""
+    rows are distinct within a slot, so no index repeats in the
+    assignment; the live ones take the chunk's K/V, and every other one
+    takes back its own old value, gathered before the write.  That is
+    exact, and needs no host sync.  The attention still takes all
+    ``qlen[b]`` queries: one past the cache attends to all ``Smax`` rows,
+    as the reference's does."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = x.to(cdt)
     B, T, _ = x.shape
@@ -264,8 +273,8 @@ def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
     q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
     rows = positions.long() % Smax
     batch_ix = torch.arange(B, device=x.device)[:, None]
-    live = (torch.arange(T, device=x.device)[None, :]
-            < qlen[:, None])[:, :, None, None]
+    live = ((torch.arange(T, device=x.device)[None, :] < qlen[:, None])
+            & (positions < Smax))[:, :, None, None]
     kl[batch_ix, rows] = torch.where(live, k.to(kl.dtype), kl[batch_ix, rows])
     vl[batch_ix, rows] = torch.where(live, v.to(vl.dtype), vl[batch_ix, rows])
     out = prefill_chunk_attention(cfg, q, kl, vl, start, qlen)

@@ -10,7 +10,13 @@ numpy has no bfloat16 (and the port does not depend on ``ml_dtypes``), so
 a bfloat16 leaf travels bit-exact as a ``uint16`` array of the same bytes;
 :func:`insert_session` reinterprets it by the target cache's dtype.  It is
 never widened to float32: :func:`session_nbytes`, which the region tier's
-``WanCost`` calibrates on, stays the cache's own size.
+``WanCost`` calibrates on, stays the cache's own size.  A session the JAX
+package exported holds ``ml_dtypes`` bfloat16 leaves; they are taken by
+their dtype's name and reinterpreted the same way, bit for bit, without
+importing ``ml_dtypes``.  The other direction, a port session handed to a
+JAX engine in process, is not supported: the JAX package would convert the
+``uint16`` values numerically.  It waits for the session wire, whose leaf
+dtype string can say ``"bfloat16"`` (ROADMAP A4).
 
 The port updates caches in place and has no donation hazard, so
 :func:`insert_session` writes straight into the target slot.
@@ -35,6 +41,8 @@ def _to_device(arr, like: torch.Tensor) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr.to(device=like.device, dtype=like.dtype)
     arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        arr = arr.view(np.uint16)      # ml_dtypes bfloat16, as its bits
     if arr.dtype == np.uint16 and like.dtype == torch.bfloat16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:

@@ -69,7 +69,14 @@ class Session:
     """A live request frozen for transport: the Request object itself (so
     the client's handle keeps accumulating tokens after migration), its
     decode position, the next input token, and its cache slice as host
-    numpy arrays (``Model.extract_session``)."""
+    numpy arrays (``Model.extract_session``).
+
+    A session the JAX package's engine exported imports here as it is,
+    bfloat16 leaves included.  A port session handed in process to a JAX
+    engine is not supported: its bfloat16 leaves are ``uint16`` bits,
+    which the JAX package would convert by value.  That direction waits
+    for the session wire (ROADMAP A4), whose leaf dtype string can say
+    ``"bfloat16"``."""
     req: Request
     pos: int
     cur_token: int

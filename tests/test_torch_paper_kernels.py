@@ -114,6 +114,66 @@ def test_matmul_out_writes_a_row_slice():
         mm.matmul(a, a[:10])
 
 
+# the kernel's tile plan: the runtime's product (64x64x64) and every row
+# slice its TAO bodies take at widths 1-4 (rows c*64//w .. (c+1)*64//w:
+# 64, 32, 22 and 21, 16), the checks' large product, a ragged one and a
+# single row
+PLAN_SHAPES = [(m, 64, 64) for m in (64, 32, 22, 21, 16)] + [
+    (1000, 700, 300), (37, 19, 23), (1, 64, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_matmul_tile_plan_covers_each_output_once(m, k, n):
+    """Every output element lies in exactly one thread's strip; a product
+    whose sides are multiples of the tile (every TAO slice at width 1, 2
+    and 4) has no thread without work."""
+    plan = mm.TilePlan(m, n, k)
+    gx, gy = plan.grid
+    assert (gx - 1) * mm.BM < m <= gx * mm.BM
+    assert (gy - 1) * mm.BN < n <= gy * mm.BN
+    assert plan.k_tiles * mm.BK >= k > (plan.k_tiles - 1) * mm.BK
+    hits = np.zeros((m, n), np.int32)
+    strips = list(plan.strips())
+    for r, c, w in strips:
+        hits[r, c:c + w] += 1
+    assert (hits == 1).all()
+    if m % mm.BM == 0 and n % mm.BN == 0:
+        assert len(strips) == gx * gy * mm.THREADS
+        assert all(w == mm.STRIP for _, _, w in strips)
+
+
+def _emulate_plan(plan, x, y):
+    """The kernel's arithmetic in numpy: each thread's strip summed in f32
+    FMAs in k order over its k-tiles, zero-padded past K (an FMA as the
+    float64 product, exact, plus the f32 accumulator, rounded once to f32:
+    a true FMA up to double rounding)."""
+    kp = plan.k_tiles * mm.BK
+    xp = np.zeros((plan.M, kp), np.float32)
+    yp = np.zeros((kp, plan.N + mm.STRIP), np.float32)
+    xp[:, :plan.K], yp[:plan.K, :plan.N] = x, y
+    strips = np.array([(r, c) for r, c, _ in plan.strips()])
+    rows, cols = strips[:, 0], strips[:, 1:] + np.arange(mm.STRIP)
+    acc = np.zeros(cols.shape, np.float32)
+    for k in range(kp):
+        prod = (xp[rows, k].astype(np.float64)[:, None]
+                * yp[k, cols].astype(np.float64))
+        acc = (prod + acc).astype(np.float32)
+    out = np.full((plan.M, plan.N + mm.STRIP), np.nan, np.float32)
+    out[rows[:, None], cols] = acc
+    return out[:, :plan.N]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_matmul_tile_plan_emulation_matches_jax(m, k, n):
+    rng = np.random.default_rng(m * k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    y = rng.standard_normal((k, n)).astype(np.float32)
+    got = _emulate_plan(mm.TilePlan(m, n, k), x, y)
+    want = np.asarray(jax_matmul_ref(jnp.asarray(x), jnp.asarray(y)))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.sqrt(k))
+
+
 # ---------------------------------------------------------------------------
 # bitonic sort
 # ---------------------------------------------------------------------------
