@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero before the last line:
              the card, at the serving path's shapes (the attention kernels
              also at the edges of their designs: ragged decode with one
              slot at the cache's end, every slot at 0, positions at the
-             chosen split's edges and past the cache, rep 16, hd 128;
-             flash prefill at 2048 and 17 tokens, hd 128, Sq != Skv;
+             chosen split's edges and past the cache, rep 16, hd 128, and
+             the MoE family's 16/8 heads (rep 2); flash prefill at 2048
+             and 17 tokens, hd 128, Sq != Skv, and 992 tokens at 16/8;
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
              chunks crossing, starting at and starting past the cache's
@@ -46,7 +47,27 @@ Phases, in order; any failure exits non-zero before the last line:
              continue the unmigrated chunked stream token for token; and
              the chunked and whole-prompt prefills of the longest prompt
              agree on its last-token logits within a stated limit;
-6. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+6. wire    — the serve phase's model: a session exported mid-decode and a
+             prefill exported after 2 of its chunks travel as wire bytes
+             (``export_session_wire``) over a ``LoopbackTransport`` to a
+             second engine and continue the unmigrated streams token for
+             token; payload bytes, codec and the host's encode and decode
+             times; a payload with a flipped bit is refused;
+7. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
+             32 experts top-8), random weights from the seed: 8 requests
+             with prompts of 103-992 tokens and 32 new tokens each, 8
+             slots, chunks of 4; every request finishes in vocabulary,
+             both attention kernels launch exactly as often as the run's
+             prefills and decode steps say, and a session moved through
+             the wire mid-decode continues the unmigrated stream; tok/s,
+             TPOT, TTFT, peak memory, and a profiled decode window (its
+             device-busy share, the MoE layers' and expert products'
+             device time);
+8. checkpoint — the same model's parameters cut to 2 layers, written by
+             ``params_to_numpy`` + ``save_checkpoint`` and read back by
+             ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
+             prompt's logits bit-identical; seconds and bytes;
+9. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -225,8 +246,8 @@ def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol,
 
 
 def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol,
-               Skv=None, hd=64):
-    B, Hq, Hkv = 1, 14, 2
+               Skv=None, hd=64, Hq=14, Hkv=2):
+    B = 1
     Sq, Skv = S, Skv or S
     dev = "cuda"
     # the model's (B, S, H, hd) activations, passed as (B, H, S, hd) views
@@ -599,6 +620,9 @@ def phase_kernels(torch, seed, peaks):
                                    rd_Smax, 2e-2, Hq=32),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
                                    rd_Smax, 2e-2, hd=128),
+                # the MoE family's heads (granite-moe-1b-a400m: 16/8, rep 2)
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, Hq=16, Hkv=8),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, f32,
                                    1000, 1e-4)]
     # the serving prompt's size first; then a shorter prompt, non-causal,
@@ -618,6 +642,9 @@ def phase_kernels(torch, seed, peaks):
                            True, 2e-2, hd=128),
                 flash_case(torch, F, fa, gen, peaks, flush, bf16, 100,
                            False, 2e-2, Skv=1000),
+                # the MoE serve phase's longest prompt at 16/8 heads (rep 2)
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
+                           True, 2e-2, Hq=16, Hkv=8),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
     # the serving chunk (a 4th chunk of 256 tokens), the first and the last
@@ -962,7 +989,334 @@ def phase_chunked(torch, card, model, params, whole_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 6. the paper's threaded runtime
+# 6. the session wire
+# ---------------------------------------------------------------------------
+
+def _wire_move(src, dst, rid, link, prefill: bool):
+    """Move ``rid`` from ``src`` to ``dst`` as wire bytes over ``link``: a
+    live session (``export_session_wire``) or, with ``prefill``, an
+    unfinished chunked prefill (``export_prefill`` + ``encode_session``).
+    Returns the decoded Request that finishes on ``dst``, the payload and
+    the host's times: export (device to host and encode), a second encode
+    of the decoded session (which must give the same bytes) and a
+    decode."""
+    from repro_torch.region import decode_session, encode_session
+    t0 = time.perf_counter()
+    data = (encode_session(src.export_prefill(rid)) if prefill
+            else src.export_session_wire(rid))
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    arrived, _ = link.ship(data, 0, 1)
+    check(arrived == data, "the loopback transport changed the payload")
+    t0 = time.perf_counter()
+    sess = decode_session(arrived)
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    again = encode_session(sess)
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    check(again == data, "re-encoding the decoded session changed its bytes")
+    dst.import_session_wire(arrived)
+    handle = dst.prefilling[-1].req if prefill else dst.sessions_in[-1].req
+    return handle, data, dict(export_ms=export_ms, encode_ms=encode_ms,
+                              decode_ms=decode_ms)
+
+
+def _wire_solo(model, params, prompt, max_new, after, chunk_tokens=0):
+    """One request alone on an 8-slot engine: to the end (``after`` None),
+    or moved after ``after`` steps through the wire and a
+    ``LoopbackTransport`` to a second engine of the same shape, where it
+    finishes (mid-decode, or mid-prefill with ``chunk_tokens``).  Returns
+    the tokens, and the payload and times of a move."""
+    from repro_torch.region import LoopbackTransport
+    from repro_torch.serve import Request, ServeEngine
+
+    def engine():
+        return ServeEngine(model, params, max_batch=8, max_seq=2048,
+                           decode_chunk=4, prefill_chunk_tokens=chunk_tokens)
+
+    req = Request(rid=0, prompt=prompt, max_new=max_new)
+    a = engine()
+    a.submit(req)
+    if after is None:
+        a.run_until_drained()
+        return list(req.out_tokens), None, None
+    for _ in range(after):
+        a.step()
+    check(not req.done, "the wire request finished before its export")
+    b, link = engine(), LoopbackTransport()
+    handle, data, times = _wire_move(a, b, req.rid, link, chunk_tokens > 0)
+    check(link.bytes_by_link[(0, 1)] == len(data)
+          and link.total_ships == 1, "transport counters")
+    b.run_until_drained()
+    check(handle.done and handle.rid == req.rid, "the moved request did "
+                                                 "not finish")
+    return list(handle.out_tokens), data, times
+
+
+def _print_wire(tag, label, data, times, card):
+    from repro_torch.region import wire_header
+    h = wire_header(data)
+    print(f"[{tag}] {label}: payload {len(data)} bytes, codec {h['codec']}, "
+          f"version {h['version']}; host export {times['export_ms']:.3f} ms "
+          f"(device to host and encode), encode {times['encode_ms']:.3f} ms, "
+          f"decode {times['decode_ms']:.3f} ms, i.e. "
+          f"{1e6 * times['encode_ms'] / len(data):.3f} + "
+          f"{1e6 * times['decode_ms'] / len(data):.3f} ns per payload byte "
+          f"({card})")
+
+
+def phase_wire(torch, card, model, params, reqs):
+    """qwen2-0.5b at full width: a session exported mid-decode and a
+    prefill exported after 2 of its chunks cross the wire and a
+    ``LoopbackTransport`` to a second engine and finish there with the
+    unmigrated streams; a corrupted payload is refused before any state is
+    touched."""
+    from repro_torch.region import WireFormatError, decode_session
+    from repro_torch.serve import ServeEngine
+    prompt = min((r.prompt for r in reqs), key=len)
+    ref, _, _ = _wire_solo(model, params, prompt, 64, None)
+    got, data, times = _wire_solo(model, params, prompt, 64, 3)
+    check(got == ref, f"wire-migrated stream differs:\n{got}\n{ref}")
+    _print_wire("wire", f"mid-decode session of a {len(prompt)}-token prompt",
+                data, times, card)
+    print(f"[wire] mid-decode: {len(got)} tokens identical to the "
+          f"unmigrated stream")
+    prompt = max((r.prompt for r in reqs), key=len)
+    ref, _, _ = _wire_solo(model, params, prompt, CHUNK_NEW, None, CHUNK)
+    got, pdata, ptimes = _wire_solo(model, params, prompt, CHUNK_NEW, 2,
+                                    CHUNK)
+    check(got == ref, f"wire-migrated prefill differs:\n{got}\n{ref}")
+    check(decode_session(pdata).prefilled == 2 * CHUNK,
+          "the prefill left after other than 2 chunks")
+    _print_wire("wire", f"mid-prefill session ({2 * CHUNK} of "
+                f"{len(prompt)} prompt tokens)", pdata, ptimes, card)
+    print(f"[wire] mid-prefill: {len(got)} tokens identical to the "
+          f"unmigrated chunked stream")
+    bad = bytearray(data)
+    bad[len(bad) // 2] ^= 0x10
+    eng = ServeEngine(model, params, max_batch=8, max_seq=2048)
+    try:
+        eng.import_session_wire(bytes(bad))
+    except WireFormatError as e:
+        check(eng.pending() == 0, "a refused payload left state behind")
+        print(f"[wire] a payload with one flipped bit is refused: {e}")
+    else:
+        raise SmokeFailure("a corrupted payload was imported")
+
+
+# ---------------------------------------------------------------------------
+# 7. the MoE family
+# ---------------------------------------------------------------------------
+
+MOE_NEW = 32
+
+
+def _moe_ranges(moe):
+    """Wrap the MoE layer and its expert product in profiler ranges (for
+    the profiled window only): ``moe_apply`` less ``expert_ffn`` is the
+    routing and dispatch."""
+    from torch.profiler import record_function
+    saved = moe.moe_apply, moe.expert_ffn
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    moe.moe_apply = ranged("moe_apply", saved[0])
+    moe.expert_ffn = ranged("expert_ffn", saved[1])
+    return lambda: (setattr(moe, "moe_apply", saved[0]),
+                    setattr(moe, "expert_ffn", saved[1]))
+
+
+def phase_moe(torch, seed, card, serve_reqs):
+    """granite-moe-1b-a400m at full width through ``ServeEngine``: 8
+    requests (the serve phase's prompt lengths, every other one, over this
+    vocabulary) and 32 new tokens each, 8 slots, chunks of 4; launch
+    counts exact; a session moved through the wire mid-decode continues
+    the unmigrated stream."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.models import get_model
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("granite-moe-1b-a400m")
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_expert {cfg.d_expert}, vocab {cfg.vocab}: "
+          f"{n_params} parameters ({cfg.param_count()} by the config), "
+          f"{n_bytes} bytes on the card in {cfg.compute_dtype} (float32 "
+          f"norms and router), init {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
+               for r in serve_reqs[::2]]
+    warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                       decode_chunk=4)
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8))
+    warm.run_until_drained()
+    del warm
+
+    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                         decode_chunk=4)
+    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
+                      .element_size() for shape, dt in
+                      model.cache_spec(8, 2048).values())
+    reqs = [Request(rid=i, prompt=p, max_new=MOE_NEW)
+            for i, p in enumerate(prompts)]
+    lat = []
+    engine.on_step_latency = lat.append
+    for r in reqs:
+        engine.submit(r)
+    rd.launches = fa.launches = 0       # count this path's run only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
+
+    check(all(r.done for r in reqs), "moe: not every request finished")
+    check(all(len(r.out_tokens) == MOE_NEW for r in reqs),
+          f"moe: token counts {[len(r.out_tokens) for r in reqs]}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+          "moe: a token is outside [0, vocab)")
+    check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
+          f"moe: flash_attention launches {launches['flash_attention']} != "
+          f"{len(reqs)} prefills x {cfg.n_layers} layers")
+    steps = len(lat)
+    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+          f"moe: ragged_decode launches {launches['ragged_decode']} != "
+          f"{steps} steps x 4 tokens x {cfg.n_layers} layers")
+    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+    ttft = sorted(r.t_first - r.t_admit for r in reqs)
+    lo, hi = min(map(len, prompts)), max(map(len, prompts))
+    print(f"[moe] {len(reqs)} requests x {MOE_NEW} tokens, prompts "
+          f"{lo}-{hi} (prefill capacity {moe.capacity(cfg, lo)}-"
+          f"{moe.capacity(cfg, hi)} copies per expert; decode at no-drop "
+          f"capacity 8): wall {wall:.3f} s, {steps} decode steps")
+    print(f"[moe] decode {dec_tokens / (sum(lat) * 4):.1f} tok/s, p50 TPOT "
+          f"{1e3 * float(np.median(lat)):.3f} ms, p50 TTFT "
+          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms ({card})")
+    print(f"[moe] launches in the run: {launches}")
+    print(f"[moe] peak device memory {peak} bytes; the batch cache "
+          f"{cache_bytes} bytes ({card})")
+
+    # where the decode's device time goes: attention kernels, routing and
+    # dispatch, expert products
+    eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                      decode_chunk=4)
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    eng.step()                        # admits all 8, first chunk
+    restore = _moe_ranges(moe)
+    try:
+        prof = _profile_window(torch, lambda: [eng.step() for _ in range(3)],
+                               "moe: 3 decode chunks x 4 tokens, 8 slots",
+                               card, ranges=("moe_apply", "expert_ffn"))
+    finally:
+        restore()
+    if prof is not None:
+        print(f"[moe] decode window: device busy share "
+              f"{prof['busy'] / prof['wall']:.3f} ({card})")
+    if prof is not None and {"moe_apply", "expert_ffn"} <= prof.keys():
+        print(f"[moe] decode window: MoE layers {prof['moe_apply']:.3f} ms "
+              f"of {1e3 * prof['busy']:.3f} ms device time: expert products "
+              f"{prof['expert_ffn']:.3f} ms, routing and dispatch "
+              f"{prof['moe_apply'] - prof['expert_ffn']:.3f} ms")
+    longest = max(prompts, key=len)
+    tokens = torch.as_tensor(longest, device="cuda").long()[None]
+    _profile_window(torch, lambda: model.prefill(params, {"tokens": tokens}),
+                    f"moe: prefill of {len(longest)} tokens", card)
+
+    # a session moved through the wire mid-decode continues the stream
+    prompt = min(prompts, key=len)
+    ref, _, _ = _wire_solo(model, params, prompt, MOE_NEW, None)
+    got, data, times = _wire_solo(model, params, prompt, MOE_NEW, 3)
+    check(got == ref, f"moe: wire-migrated stream differs:\n{got}\n{ref}")
+    _print_wire("moe", f"mid-decode session of a {len(prompt)}-token prompt",
+                data, times, card)
+    print(f"[moe] migration: {len(got)} tokens identical to the unmigrated "
+          f"stream")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. checkpoints
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 2
+
+
+def phase_checkpoint(torch, seed, card):
+    """granite-moe-1b-a400m's full-width parameters, cut to 2 layers for
+    time, written through ``params_to_numpy`` and ``save_checkpoint`` and
+    read back through ``load_checkpoint`` and ``params_from_numpy`` onto
+    the card: one prompt's logits bit-identical to the written model's."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import (default_codec, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              n_layers=CKPT_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, 257), device="cuda").long()[None]
+    want, _ = model.prefill(params, {"tokens": prompt})
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tree = params_to_numpy(cfg, params)
+        path = save_checkpoint(d, 1, tree)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in pathlib.Path(path).iterdir())
+        raw = sum(a.nbytes for a in _leaves(tree))
+        t0 = time.perf_counter()
+        loaded, _ = load_checkpoint(d, 1, tree, device="cuda")
+        back = params_from_numpy(cfg, loaded, "cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    got, _ = model.prefill(back, {"tokens": prompt})
+    check(torch.equal(got, want), "checkpoint round trip: logits differ "
+          f"by {(got.float() - want.float()).abs().max().item()}")
+    print(f"[checkpoint] {cfg.name} at full width cut to {CKPT_LAYERS} of "
+          f"24 layers: {raw} bytes of {cfg.param_dtype} leaves -> {nbytes} "
+          f"bytes on disk ({default_codec()}); to numpy and save "
+          f"{t_save:.2f} s, load and onto the card {t_load:.2f} s; logits of "
+          f"a {prompt.shape[1]}-token prompt bit-identical ({card})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# 9. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -1121,16 +1475,23 @@ def phase_runtime(torch, seed, card):
     return main_launches
 
 
-# the redesigned kernels' device functions, summed in the profile windows
-PROFILE_GROUPS = {"ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
+# the port's kernels' device functions, summed in the profile windows
+PROFILE_GROUPS = {"ragged_decode": ("decode_split_", "decode_combine"),
+                  "flash_attention": ("flash_bf16_wgmma", "flash_f32"),
+                  "ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
                   "bitonic_sort": ("sort_cluster", "global_step"),
                   "matmul": ("matmul_kernel",)}
 
 
-def _profile_window(torch, fn, label: str, card: str, top: int = 8):
+def _profile_window(torch, fn, label: str, card: str, top: int = 8,
+                    ranges=()):
     """Run ``fn`` under torch.profiler; print device busy time against
     wall time, the kernels that took most device time and the port's
-    kernels, each with its share, and each redesigned kernel's sum."""
+    kernels, each with its share, and each port kernel's sum; and for each
+    ``torch.profiler.record_function`` range named in ``ranges``, the
+    device time of the kernels launched inside it.  Returns ``{"wall":
+    s, "busy": s, name: device ms for each range}``, or None when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1144,14 +1505,16 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8):
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        # a range's GPU-side annotation spans kernels already counted
         if dev_us > 0 and e.device_type is not None \
-                and "cuda" in str(e.device_type).lower():
+                and "cuda" in str(e.device_type).lower() \
+                and e.key not in ranges:
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows) / 1e6
     if busy == 0:
         print(f"[profile] {label}: wall {1e3 * wall:.3f} ms; device time "
               f"not measured (the profiler saw no CUDA kernels)")
-        return
+        return None
     print(f"[profile] {label}: wall {1e3 * wall:.3f} ms, device busy "
           f"{1e3 * busy:.3f} ms, idle share {1 - busy / wall:.3f} ({card})")
     # the top kernels, and every kernel in an anonymous namespace (all
@@ -1167,6 +1530,22 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8):
             print(f"[profile]   {name}: {d / 1e3:.3f} ms of device time in "
                   f"{sum(x[1] for x in got)} launches, {d / 1e6 / busy:.1%} "
                   f"of the window's")
+    out = {"wall": wall, "busy": busy}
+    for e in prof.key_averages():
+        # the host-side range: the device time of the kernels launched
+        # inside it (its GPU-side annotation is a span, gaps included)
+        if e.key in ranges and "cpu" in str(e.device_type).lower():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            if dev_us > 0:
+                out[e.key] = dev_us / 1e3
+            print(f"[profile]   range {e.key}: "
+                  + (f"{dev_us / 1e3:.3f} ms of device time in {e.count} "
+                     f"calls, {dev_us / 1e6 / busy:.1%} of the window's"
+                     if dev_us > 0 else "device time not measured (no "
+                     "kernel attributed to the range)"))
+    return out
 
 
 def phase_profile(torch, np, model, params, reqs, card):
@@ -1220,7 +1599,11 @@ def main() -> int:
         launches, model, params, reqs = phase_serve(torch, args.seed, card)
         chunked = phase_chunked(torch, card, model, params, reqs)
         launches["ragged_prefill"] = chunked["ragged_prefill"]
-        del model, params, reqs
+        phase_wire(torch, card, model, params, reqs)
+        del model, params
+        phase_moe(torch, args.seed, card, reqs)
+        del reqs
+        phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))
         launches["stream_scale_add"] = scale_add_launches
         kernels = kernel_line(stats, launches)

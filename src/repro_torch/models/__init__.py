@@ -1,6 +1,6 @@
 """Model registry of the port: family -> module with a uniform interface.
-Counterpart of ``repro/models/__init__.py``; only the dense family is
-ported.
+Counterpart of ``repro/models/__init__.py``; the dense and MoE families
+are ported.
 
 Every family module provides::
 
@@ -8,6 +8,8 @@ Every family module provides::
     prefill(cfg, p, batch)        -> (last logits, cache)
     prefill_chunk(cfg, p, tokens, cache, start, qlen)
                                   -> (last live logits, cache)   in place
+                                  (dense only: an MoE prompt prefills
+                                  whole, as in the reference)
     decode(cfg, p, token, pos, cache) -> (logits, cache)   cache in place
     cache_spec(cfg, B, S)         -> {leaf: (shape, dtype)}
     cache_logical_axes(cfg), cache_seq_axes(cfg)
@@ -30,7 +32,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import sessions, transformer
+from . import moe, sessions, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +59,7 @@ class Model:
                                   # for a family without a chunkable prefill
 
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": moe}
 
 
 def _fused_decode(cfg: ModelConfig, mod) -> Callable:
@@ -99,7 +101,8 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, init=bind(mod.init), prefill=bind(mod.prefill),
                  decode=bind(mod.decode),
                  decode_fused=_fused_decode(cfg, mod),
-                 prefill_chunk=bind(mod.prefill_chunk),
+                 prefill_chunk=(bind(mod.prefill_chunk)
+                                if hasattr(mod, "prefill_chunk") else None),
                  cache_spec=bind(mod.cache_spec),
                  cache_logical_axes=bind(mod.cache_logical_axes),
                  cache_seq_axes=bind(mod.cache_seq_axes),

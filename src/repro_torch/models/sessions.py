@@ -8,15 +8,19 @@ process, or imported into another engine's batch cache.
 
 numpy has no bfloat16 (and the port does not depend on ``ml_dtypes``), so
 a bfloat16 leaf travels bit-exact as a ``uint16`` array of the same bytes;
-:func:`insert_session` reinterprets it by the target cache's dtype.  It is
-never widened to float32: :func:`session_nbytes`, which the region tier's
+:func:`insert_session` views it as bfloat16 (the same helpers,
+``checkpoint.store.host_leaf`` / ``device_leaf``, carry checkpoints and
+the wire) and then takes the target cache's dtype.  It is never widened to
+float32: :func:`session_nbytes`, which the region tier's
 ``WanCost`` calibrates on, stays the cache's own size.  A session the JAX
 package exported holds ``ml_dtypes`` bfloat16 leaves; they are taken by
 their dtype's name and reinterpreted the same way, bit for bit, without
-importing ``ml_dtypes``.  The other direction, a port session handed to a
-JAX engine in process, is not supported: the JAX package would convert the
-``uint16`` values numerically.  It waits for the session wire, whose leaf
-dtype string can say ``"bfloat16"`` (ROADMAP A4).
+importing ``ml_dtypes``.  The other direction goes over the session wire
+(:mod:`repro_torch.region.wire`), which names a ``uint16`` cache leaf
+``"bfloat16"``: handed in process, a port session's ``uint16`` leaves would
+be converted by value by the JAX package.  That naming is sound because a
+cache holds floating-point leaves only, which :func:`extract_session`
+checks.
 
 The port updates caches in place and has no donation hazard, so
 :func:`insert_session` writes straight into the target slot.
@@ -27,43 +31,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+from ..checkpoint.store import device_leaf, host_leaf
 
 
 def _to_device(arr, like: torch.Tensor) -> torch.Tensor:
     """A session leaf (host numpy, or a tensor such as a fresh prefill
-    cache) as a tensor of ``like``'s dtype on ``like``'s device."""
+    cache) as a tensor of ``like``'s dtype on ``like``'s device; a
+    ``uint16`` or ``ml_dtypes`` bfloat16 leaf is bfloat16 bits."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device=like.device, dtype=like.dtype)
-    arr = np.ascontiguousarray(arr)
-    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
-        arr = arr.view(np.uint16)      # ml_dtypes bfloat16, as its bits
-    if arr.dtype == np.uint16 and like.dtype == torch.bfloat16:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device=like.device, dtype=like.dtype)
+    leaf = device_leaf(*host_leaf(arr, uint16_is_bf16=True), like.device)
+    return leaf.to(like.dtype)
 
 
 def extract_session(cache: dict, slot: int, pos: int, logical_axes: dict,
                     seq_axes: dict) -> dict:
     """Slice slot ``slot`` out of ``cache``: batch axis narrowed to
     ``slot:slot+1``, sequence axes trimmed to ``[:pos]`` (the live entries),
-    leaves copied to host numpy."""
+    leaves copied to host numpy.  Raises ``TypeError`` on a leaf that is
+    not floating point: the wire takes a ``uint16`` cache leaf for
+    bfloat16 bits, so no cache may hold integers."""
     out = {}
     for name, leaf in cache.items():
+        if not leaf.is_floating_point():
+            raise TypeError(f"cache leaf {name!r} is {leaf.dtype}: a session "
+                            f"cache holds floating-point leaves only")
         b_axis = logical_axes[name].index("batch")
         idx = [slice(None)] * leaf.dim()
         idx[b_axis] = slice(slot, slot + 1)
         s_axis = seq_axes[name]
         if s_axis is not None:
             idx[s_axis] = slice(0, pos)
-        out[name] = _to_host(leaf[tuple(idx)])
+        out[name] = host_leaf(leaf[tuple(idx)])[1]
     return out
 
 

@@ -1,5 +1,7 @@
 """Dense decoder-only transformer (qwen2 / qwen2.5 / starcoder2 / smollm):
-the port's counterpart of ``repro/models/transformer.py``.
+the port's counterpart of ``repro/models/transformer.py``.  The MoE family
+(``models/moe.py``) shares its layer loop and cache layout: each layer
+runs its own feed-forward through ``ffn``.
 
 Layers are a Python loop over per-layer ``nn.Module``s where the reference
 scans stacked layer parameters (``lax.scan``) under ``jax.checkpoint``;
@@ -27,10 +29,17 @@ class Block(nn.Module):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
 
+    def ffn(self, cfg: ModelConfig, h, decode: bool = False):
+        """The layer's feed-forward on the normed residual ``h``.
+        ``decode`` says that ``h`` is one decode step, which the MoE
+        block's capacity depends on; the dense MLP ignores it."""
+        return L.mlp_apply(cfg, self.mlp, h)
+
 
 class Transformer(nn.Module):
-    """The parameters of a dense model: ``tok`` (embedding and head),
-    ``layers`` (one :class:`Block` per layer) and ``ln_f``."""
+    """The parameters of a dense or MoE model: ``tok`` (embedding and
+    head), ``layers`` (one :class:`Block`, or ``moe.MoEBlock``, per layer)
+    and ``ln_f``."""
 
     def __init__(self, tok: L.Embedding, layers: list[Block], ln_f: L.Norm):
         super().__init__()
@@ -82,7 +91,7 @@ def _block_prefill(cfg: ModelConfig, lp: Block, x, positions):
     a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions)
     x = x + a
     h = L.apply_norm(lp.ln2, x, cfg.norm)
-    x = x + L.mlp_apply(cfg, lp.mlp, h)
+    x = x + lp.ffn(cfg, h)
     return x, (k, v)
 
 
@@ -93,7 +102,7 @@ def _block_prefill_chunk(cfg: ModelConfig, lp: Block, x, kfull, vfull,
                                               layer_idx, start, qlen,
                                               positions)
     h = L.apply_norm(lp.ln2, x, cfg.norm)
-    return x + L.mlp_apply(cfg, lp.mlp, h)
+    return x + lp.ffn(cfg, h)
 
 
 def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
@@ -102,7 +111,7 @@ def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
     x = x + L.attention_decode_inplace(cfg, lp.attn, h, kfull, vfull,
                                        layer_idx, pos)
     h = L.apply_norm(lp.ln2, x, cfg.norm)
-    return x + L.mlp_apply(cfg, lp.mlp, h)
+    return x + lp.ffn(cfg, h, decode=True)
 
 
 # ---------------------------------------------------------------------------

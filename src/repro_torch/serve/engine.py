@@ -24,16 +24,16 @@ constructor and surface.
   the legacy per-token path (``Model.decode`` + device argmax);
 * finished sequences free their slots immediately;
 * a live request can leave the engine as a :class:`Session`
-  (``export_session``) and resume on another engine (``import_session``);
+  (``export_session``) and resume on another engine (``import_session``),
+  in process or as wire bytes (``export_session_wire``,
+  ``import_session_wire``; :mod:`repro_torch.region.wire`), which the JAX
+  package's engine reads and writes too;
 * the :class:`ElasticServeScheduler` is consulted per prefill or prefill
   chunk (critical) and per decode chunk (non-critical).  Its PTT learns
   **device** time: every latency sample is taken after the host sync that
   ends the work (the ``argmax`` of a prefill or of a prompt's last chunk,
   a stream synchronisation after any other chunk, the ``(B, k)`` copy of a
   decode chunk), never after the enqueue alone.
-
-Not ported yet, and raising ``NotImplementedError``: the session wire
-format (``export_session_wire``, ``import_session_wire``; ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ class Request:
     rid: int
     prompt: np.ndarray           # (prompt_len,)
     max_new: int
+    tenant: int | str = 0        # fair-shedding bucket (SLOPolicy weights)
     extras: dict = dataclasses.field(default_factory=dict)
                                  # extra prefill inputs without the batch
                                  # axis (e.g. vlm "image_embeds")
@@ -72,10 +73,10 @@ class Session:
     numpy arrays (``Model.extract_session``).
 
     A session the JAX package's engine exported imports here as it is,
-    bfloat16 leaves included.  A port session handed in process to a JAX
-    engine is not supported: its bfloat16 leaves are ``uint16`` bits,
-    which the JAX package would convert by value.  That direction waits
-    for the session wire (ROADMAP A4), whose leaf dtype string can say
+    bfloat16 leaves included.  The other way, the wire is the path between
+    the packages (``export_session_wire``): a port session's bfloat16
+    leaves are ``uint16`` bits, which the JAX package's ``insert_session``
+    would convert by value in process, and the wire names them
     ``"bfloat16"``."""
     req: Request
     pos: int
@@ -86,6 +87,8 @@ class Session:
                                   # session); else the prompt tokens
                                   # already consumed: a mid-prefill export
                                   # whose cache holds only those rows
+    delivery: tuple | None = None  # (origin, rid, epoch) delivery id a
+                                   # shipping gateway stamps (wire v4)
 
 
 @dataclasses.dataclass
@@ -97,11 +100,6 @@ class _Prefill:
     cache: dict
     consumed: int = 0            # prompt tokens already in the cache
     t_start: float | None = None  # first chunk's wall time
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class ServeEngine:
@@ -231,7 +229,9 @@ class ServeEngine:
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
         if req.extras:
-            raise _not_ported("prefill extras (non-dense families)", "A3")
+            raise NotImplementedError(
+                "prefill extras (non-dense families) are not ported to "
+                "repro_torch yet (ROADMAP A3)")
         self.queue.append(req)
 
     # -- crash / restart (fault injection surface) -------------------------
@@ -555,10 +555,19 @@ class ServeEngine:
             _Prefill(req=sess.req, cache=cache, consumed=sess.prefilled))
 
     def export_session_wire(self, rid: int) -> bytes:
-        raise _not_ported("the session wire format", "A4")
+        """:meth:`export_session` encoded with the versioned session wire
+        format (:mod:`repro_torch.region.wire`): the byte form that crosses
+        process boundaries, and the one the JAX package's engine reads."""
+        from ..region.wire import encode_session   # avoid import cycle
+        return encode_session(self.export_session(rid))
 
     def import_session_wire(self, data: bytes, strict: bool = True) -> None:
-        raise _not_ported("the session wire format", "A4")
+        """Accept a session shipped as wire bytes (either package's);
+        validation errors raise
+        :class:`~repro_torch.region.wire.WireFormatError` before any state
+        is touched."""
+        from ..region.wire import decode_session   # avoid import cycle
+        self.import_session(decode_session(data), strict=strict)
 
     def active_pos(self, rid: int) -> int | None:
         """Decode position of an active request (None if not active)."""

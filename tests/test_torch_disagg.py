@@ -41,7 +41,8 @@ from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
 from repro_torch.serve import Session as TSession
 
-ARCHS = ("qwen2-0.5b", "smollm-135m")
+# qwen2.5-3b: QKV bias, tied; starcoder2-15b: LayerNorm, GELU, bias, untied
+ARCHS = ("qwen2-0.5b", "smollm-135m", "qwen2.5-3b", "starcoder2-15b")
 MAX_SEQ = 32
 MAX_NEW = 6
 PLEN = 11                    # prompt tokens: chunks of 4 + 4 + 3

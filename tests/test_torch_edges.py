@@ -37,7 +37,8 @@ from repro_torch.models.sessions import _to_device
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
 
-ARCHS = ("qwen2-0.5b", "smollm-135m")
+# qwen2.5-3b: QKV bias, tied; starcoder2-15b: LayerNorm, GELU, bias, untied
+ARCHS = ("qwen2-0.5b", "smollm-135m", "qwen2.5-3b", "starcoder2-15b")
 MAX_SEQ = 32
 N_PROMPTS = 12                   # prompts from default_rng(100 + s)
 

@@ -3,11 +3,10 @@ against the JAX package's ``ServeEngine`` with the same weights (carried
 over by ``params_from_numpy``) and the same prompts: greedy token streams
 must be identical on the fused path at chunk 1 and 4 (max_new 6 ends
 mid-chunk), on the legacy per-step path, and across a session export /
-import; the PTT must have learned from as many samples.  Also: the
-surfaces not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item, and the port runs with JAX and the JAX package unimportable.
-Chunked prefill and the prefill-role handoff are in
-``test_torch_disagg.py``.
+import; the PTT must have learned from as many samples.  Also: the port
+runs with JAX and the JAX package unimportable.  Chunked prefill and the
+prefill-role handoff are in ``test_torch_disagg.py``, the session wire in
+``test_torch_wire.py``.
 """
 
 import os
@@ -32,7 +31,8 @@ from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
 from repro_torch.serve import Session as TSession
 
-ARCHS = ("qwen2-0.5b", "smollm-135m")
+# qwen2.5-3b: QKV bias, tied; starcoder2-15b: LayerNorm, GELU, bias, untied
+ARCHS = ("qwen2-0.5b", "smollm-135m", "qwen2.5-3b", "starcoder2-15b")
 MAX_SEQ = 32
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -137,15 +137,6 @@ def test_export_import_token_identity(pair, jax_streams, arch):
     assert req.done and list(req.out_tokens) == want
     assert a.stats()["sessions_exported"] == 1
     assert b.stats()["sessions_imported"] == 1
-
-
-def test_surfaces_not_ported_raise(pair):
-    _, _, tm, tp = pair("qwen2-0.5b")
-    eng = TServeEngine(tm, tp, max_batch=2, max_seq=MAX_SEQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        eng.export_session_wire(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        eng.import_session_wire(b"")
 
 
 def test_last_step_latency_is_the_per_token_decode_latency(pair):
@@ -261,3 +252,17 @@ def test_port_runs_without_jax():
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 20
+
+
+def test_port_sources_import_no_jax_and_no_repro():
+    """No source of the port, and not ``chip_smoke.py``, names ``jax``,
+    ``ml_dtypes`` or the JAX package in an import."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ml_dtypes|repro)(\.|\s|$)",
+                     re.M)
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(SRC.parent / "chip_smoke.py")
+    assert len(files) > 40
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in pat.finditer(f.read_text())]
+    assert hits == []
