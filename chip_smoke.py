@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero before the last line:
              also at the edges of their designs: ragged decode with one
              slot at the cache's end, every slot at 0, positions at the
              chosen split's edges and past the cache, rep 16, hd 128, and
-             the MoE family's 16/8 heads (rep 2); flash prefill at 2048
-             and 17 tokens, hd 128, Sq != Skv, and 992 tokens at 16/8;
+             the MoE family's 16/8 heads (rep 2) and the hybrid's 32/8,
+             hd 128 (rep 4); flash prefill at 2048 and 17 tokens, hd 128,
+             Sq != Skv, and 992 tokens at 16/8 and at 32/8, hd 128;
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
              chunks crossing, starting at and starting past the cache's
@@ -63,11 +64,30 @@ Phases, in order; any failure exits non-zero before the last line:
              TPOT, TTFT, peak memory, and a profiled decode window (its
              device-busy share, the MoE layers' and expert products'
              device time);
-8. checkpoint — the same model's parameters cut to 2 layers, written by
+8. ssm     — mamba2-130m at full width and depth (24 layers, d_model 768,
+             24 SSM heads of 64, state 128, chunk 256), random weights
+             from the seed: the MoE phase's 8 prompts and 32 new tokens
+             each; every request finishes in vocabulary, no attention
+             kernel launches anywhere in the phase, and a session (its
+             whole SSM and conv state) moved through the wire mid-decode
+             continues the unmigrated stream; tok/s, TPOT, TTFT, peak
+             memory, the session's payload and host times, a profiled
+             decode window and a 992-token prefill;
+9. hybrid  — jamba-v0.1-52b at full width cut to one superblock (8 of 32
+             layers, the most one card holds: 1 attention layer at 32/8
+             heads and hd 128 without RoPE, 7 mamba layers, 4 of them with
+             16 experts top-2), the same prompts and 16 new tokens each
+             (cut for time); both attention kernels launch exactly once
+             per prefill and decode token step, and a wire migration
+             mid-decode is identical; tok/s, TPOT, TTFT, peak memory, and
+             a profiled decode window split into the attention kernel,
+             the MoE routing and dispatch, the expert products, the SSM
+             layers and the rest;
+10. checkpoint — the MoE model's parameters cut to 2 layers, written by
              ``params_to_numpy`` + ``save_checkpoint`` and read back by
              ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
              prompt's logits bit-identical; seconds and bytes;
-9. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+11. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -623,6 +643,9 @@ def phase_kernels(torch, seed, peaks):
                 # the MoE family's heads (granite-moe-1b-a400m: 16/8, rep 2)
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
                                    rd_Smax, 2e-2, Hq=16, Hkv=8),
+                # the hybrid family's heads (jamba: 32/8, rep 4, hd 128)
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, Hq=32, Hkv=8, hd=128),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, f32,
                                    1000, 1e-4)]
     # the serving prompt's size first; then a shorter prompt, non-causal,
@@ -645,6 +668,9 @@ def phase_kernels(torch, seed, peaks):
                 # the MoE serve phase's longest prompt at 16/8 heads (rep 2)
                 flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
                            True, 2e-2, Hq=16, Hkv=8),
+                # and at the hybrid's 32/8 heads, hd 128 (rep 4)
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
+                           True, 2e-2, Hq=32, Hkv=8, hd=128),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
     # the serving chunk (a 4th chunk of 256 tokens), the first and the last
@@ -1104,18 +1130,17 @@ def phase_wire(torch, card, model, params, reqs):
 
 
 # ---------------------------------------------------------------------------
-# 7. the MoE family
+# 7. the MoE family (and the serving run the SSM and hybrid phases share)
 # ---------------------------------------------------------------------------
 
 MOE_NEW = 32
 
 
-def _moe_ranges(moe):
-    """Wrap the MoE layer and its expert product in profiler ranges (for
-    the profiled window only): ``moe_apply`` less ``expert_ffn`` is the
-    routing and dispatch."""
+def _ranged(module, names):
+    """Wrap the functions ``names`` of ``module`` in profiler ranges (for a
+    profiled window only); returns the function that restores them."""
     from torch.profiler import record_function
-    saved = moe.moe_apply, moe.expert_ffn
+    saved = {n: getattr(module, n) for n in names}
 
     def ranged(name, fn):
         def run(*a, **kw):
@@ -1123,10 +1148,119 @@ def _moe_ranges(moe):
                 return fn(*a, **kw)
         return run
 
-    moe.moe_apply = ranged("moe_apply", saved[0])
-    moe.expert_ffn = ranged("expert_ffn", saved[1])
-    return lambda: (setattr(moe, "moe_apply", saved[0]),
-                    setattr(moe, "expert_ffn", saved[1]))
+    for n, fn in saved.items():
+        setattr(module, n, ranged(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def _init_family(torch, tag, cfg, seed, card, note=""):
+    """The family's model with seed-``seed`` weights drawn on the card,
+    after the previous phases' memory is given back; prints its size and
+    the peak over the init."""
+    from repro_torch.models import get_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[{tag}] {cfg.name}{note}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters "
+          f"({cfg.param_count()} by the config), {n_bytes} bytes on the card "
+          f"in {cfg.compute_dtype} (float32 norms, SSM scalars and router), "
+          f"init {time.perf_counter() - t0:.2f} s, peak over the init "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    return model, params
+
+
+def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
+                  card):
+    """The prompts through an 8-slot engine (``max_seq`` 2048, chunks of 4)
+    after a warm-up request: every request finishes with ``max_new``
+    in-vocabulary tokens.  The attention kernels' counts are set to 0 just
+    before the run and read just after.  Prints tok/s, TPOT, TTFT and the
+    peak memory; returns the requests, the per-token step latencies, the
+    launches, and the counts read just before they were set to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.serve import Request, ServeEngine
+    warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                       decode_chunk=4)
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8))
+    warm.run_until_drained()
+    del warm                  # its idle batch cache must not count in the peak
+
+    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                         decode_chunk=4)
+    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
+                      .element_size() for shape, dt in
+                      model.cache_spec(8, 2048).values())
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    lat = []
+    engine.on_step_latency = lat.append
+    for r in reqs:
+        engine.submit(r)
+    earlier = {"ragged_decode": rd.launches, "flash_attention": fa.launches,
+               "ragged_prefill": rp.launches}
+    rd.launches = fa.launches = rp.launches = 0   # this path's run only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches,
+                "ragged_prefill": rp.launches}
+
+    check(all(r.done for r in reqs), f"{tag}: not every request finished")
+    check(all(len(r.out_tokens) == max_new for r in reqs),
+          f"{tag}: token counts {[len(r.out_tokens) for r in reqs]}")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+          f"{tag}: a token is outside [0, vocab)")
+    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+    ttft = sorted(r.t_first - r.t_admit for r in reqs)
+    print(f"[{tag}] {len(reqs)} requests x {max_new} tokens, prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))}: wall "
+          f"{wall:.3f} s, {len(lat)} decode steps")
+    print(f"[{tag}] decode {dec_tokens / (sum(lat) * 4):.1f} tok/s, p50 TPOT "
+          f"{1e3 * float(np.median(lat)):.3f} ms, p50 TTFT "
+          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms ({card})")
+    print(f"[{tag}] launches in the run: {launches}")
+    print(f"[{tag}] peak device memory {peak} bytes; the batch cache "
+          f"{cache_bytes} bytes ({card})")
+    return reqs, lat, launches, earlier
+
+
+def _decode_window(torch, model, params, reqs, label, card, ranges=()):
+    """A profiled window of 3 decode chunks x 4 tokens on a full batch of
+    the given prompts (admitted, and one chunk run, before the window)."""
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                      decode_chunk=4)
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+    eng.step()                        # admits all 8, first chunk
+    return _profile_window(torch, lambda: [eng.step() for _ in range(3)],
+                           label, card, ranges=ranges)
+
+
+def _wire_check(tag, model, params, prompt, max_new, card):
+    """A session moved through the wire after 3 steps continues the
+    unmigrated stream."""
+    ref, _, _ = _wire_solo(model, params, prompt, max_new, None)
+    got, data, times = _wire_solo(model, params, prompt, max_new, 3)
+    check(got == ref, f"{tag}: wire-migrated stream differs:\n{got}\n{ref}")
+    _print_wire(tag, f"mid-decode session of a {len(prompt)}-token prompt",
+                data, times, card)
+    print(f"[{tag}] migration: {len(got)} tokens identical to the "
+          f"unmigrated stream")
 
 
 def phase_moe(torch, seed, card, serve_reqs):
@@ -1137,63 +1271,18 @@ def phase_moe(torch, seed, card, serve_reqs):
     the unmigrated stream."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.ragged_decode import ops as rd
-    from repro_torch.models import get_model
     from repro_torch.models import moe
-    from repro_torch.serve import Request, ServeEngine
 
     cfg = get_config("granite-moe-1b-a400m")
-    model = get_model(cfg)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    t0 = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
-          f"top-{cfg.top_k}, d_expert {cfg.d_expert}, vocab {cfg.vocab}: "
-          f"{n_params} parameters ({cfg.param_count()} by the config), "
-          f"{n_bytes} bytes on the card in {cfg.compute_dtype} (float32 "
-          f"norms and router), init {time.perf_counter() - t0:.2f} s")
-
+    model, params = _init_family(
+        torch, "moe", cfg, seed, card,
+        note=f" ({cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} "
+             f"experts top-{cfg.top_k}, d_expert {cfg.d_expert})")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
                for r in serve_reqs[::2]]
-    warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
-                       decode_chunk=4)
-    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8))
-    warm.run_until_drained()
-    del warm
-
-    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
-                         decode_chunk=4)
-    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
-                      .element_size() for shape, dt in
-                      model.cache_spec(8, 2048).values())
-    reqs = [Request(rid=i, prompt=p, max_new=MOE_NEW)
-            for i, p in enumerate(prompts)]
-    lat = []
-    engine.on_step_latency = lat.append
-    for r in reqs:
-        engine.submit(r)
-    rd.launches = fa.launches = 0       # count this path's run only
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
-
-    check(all(r.done for r in reqs), "moe: not every request finished")
-    check(all(len(r.out_tokens) == MOE_NEW for r in reqs),
-          f"moe: token counts {[len(r.out_tokens) for r in reqs]}")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          "moe: a token is outside [0, vocab)")
+    reqs, lat, launches, _ = _serve_family(torch, np, "moe", cfg, model,
+                                           params, prompts, MOE_NEW, card)
     check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
           f"moe: flash_attention launches {launches['flash_attention']} != "
           f"{len(reqs)} prefills x {cfg.n_layers} layers")
@@ -1201,32 +1290,18 @@ def phase_moe(torch, seed, card, serve_reqs):
     check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
           f"moe: ragged_decode launches {launches['ragged_decode']} != "
           f"{steps} steps x 4 tokens x {cfg.n_layers} layers")
-    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
-    ttft = sorted(r.t_first - r.t_admit for r in reqs)
     lo, hi = min(map(len, prompts)), max(map(len, prompts))
-    print(f"[moe] {len(reqs)} requests x {MOE_NEW} tokens, prompts "
-          f"{lo}-{hi} (prefill capacity {moe.capacity(cfg, lo)}-"
+    print(f"[moe] prefill capacity {moe.capacity(cfg, lo)}-"
           f"{moe.capacity(cfg, hi)} copies per expert; decode at no-drop "
-          f"capacity 8): wall {wall:.3f} s, {steps} decode steps")
-    print(f"[moe] decode {dec_tokens / (sum(lat) * 4):.1f} tok/s, p50 TPOT "
-          f"{1e3 * float(np.median(lat)):.3f} ms, p50 TTFT "
-          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms ({card})")
-    print(f"[moe] launches in the run: {launches}")
-    print(f"[moe] peak device memory {peak} bytes; the batch cache "
-          f"{cache_bytes} bytes ({card})")
+          f"capacity 8")
 
     # where the decode's device time goes: attention kernels, routing and
     # dispatch, expert products
-    eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
-                      decode_chunk=4)
-    for r in reqs:
-        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
-    eng.step()                        # admits all 8, first chunk
-    restore = _moe_ranges(moe)
+    restore = _ranged(moe, ("moe_apply", "expert_ffn"))
     try:
-        prof = _profile_window(torch, lambda: [eng.step() for _ in range(3)],
-                               "moe: 3 decode chunks x 4 tokens, 8 slots",
-                               card, ranges=("moe_apply", "expert_ffn"))
+        prof = _decode_window(torch, model, params, reqs,
+                              "moe: 3 decode chunks x 4 tokens, 8 slots",
+                              card, ranges=("moe_apply", "expert_ffn"))
     finally:
         restore()
     if prof is not None:
@@ -1241,21 +1316,147 @@ def phase_moe(torch, seed, card, serve_reqs):
     tokens = torch.as_tensor(longest, device="cuda").long()[None]
     _profile_window(torch, lambda: model.prefill(params, {"tokens": tokens}),
                     f"moe: prefill of {len(longest)} tokens", card)
-
-    # a session moved through the wire mid-decode continues the stream
-    prompt = min(prompts, key=len)
-    ref, _, _ = _wire_solo(model, params, prompt, MOE_NEW, None)
-    got, data, times = _wire_solo(model, params, prompt, MOE_NEW, 3)
-    check(got == ref, f"moe: wire-migrated stream differs:\n{got}\n{ref}")
-    _print_wire("moe", f"mid-decode session of a {len(prompt)}-token prompt",
-                data, times, card)
-    print(f"[moe] migration: {len(got)} tokens identical to the unmigrated "
-          f"stream")
+    _wire_check("moe", model, params, min(prompts, key=len), MOE_NEW, card)
     return launches
 
 
 # ---------------------------------------------------------------------------
-# 8. checkpoints
+# 8. the SSM family
+# ---------------------------------------------------------------------------
+
+SSM_NEW = 32
+
+
+def phase_ssm(torch, seed, card, serve_reqs):
+    """mamba2-130m at full width and depth through ``ServeEngine``: 8
+    requests (the serve phase's prompt lengths, every other one) and 32
+    new tokens each; no attention kernel launches anywhere in the phase;
+    a session (its whole SSM and conv state) moved through the wire
+    mid-decode continues the unmigrated stream."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+
+    cfg = get_config("mamba2-130m")
+    rd.launches = fa.launches = rp.launches = 0   # the whole phase
+    model, params = _init_family(
+        torch, "ssm", cfg, seed, card,
+        note=f" (d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+             f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk})")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
+               for r in serve_reqs[::2]]
+    reqs, _, launches, earlier = _serve_family(torch, np, "ssm", cfg, model,
+                                               params, prompts, SSM_NEW, card)
+    check(not any(earlier.values()) and not any(launches.values()),
+          f"ssm: an attention kernel launched: {earlier} before the run, "
+          f"{launches} in it")
+    prof = _decode_window(torch, model, params, reqs,
+                          "ssm: 3 decode chunks x 4 tokens, 8 slots", card)
+    if prof is not None:
+        print(f"[ssm] decode window: device busy share "
+              f"{prof['busy'] / prof['wall']:.3f} ({card})")
+    longest = max(prompts, key=len)
+    tokens = torch.as_tensor(longest, device="cuda").long()[None]
+    _profile_window(torch, lambda: model.prefill(params, {"tokens": tokens}),
+                    f"ssm: prefill of {len(longest)} tokens", card)
+    _wire_check("ssm", model, params, min(prompts, key=len), SSM_NEW, card)
+    after = {"ragged_decode": rd.launches, "flash_attention": fa.launches,
+             "ragged_prefill": rp.launches}
+    check(not any(after.values()),
+          f"ssm: an attention kernel launched in the phase: {after}")
+    print(f"[ssm] attention kernel launches in the whole phase: {after}")
+
+
+# ---------------------------------------------------------------------------
+# 9. the hybrid family
+# ---------------------------------------------------------------------------
+
+HYBRID_LAYERS = 8            # one superblock: what one card's memory holds
+HYBRID_NEW = 16              # new tokens a request, cut for time
+
+
+def phase_hybrid(torch, seed, card, serve_reqs):
+    """jamba-v0.1-52b at full width, cut to one superblock (8 of 32
+    layers: 49.3 B parameters by the config do not fit one card's 80 GB
+    in bf16), through ``ServeEngine``: 8 requests (the serve phase's
+    prompt lengths, every other one) and 16 new tokens each; attention
+    kernel launches exact (``nb`` per prefill and per decode token step);
+    a session moved through the wire mid-decode continues the unmigrated
+    stream; a profiled decode window split into the attention kernel, the
+    MoE routing and dispatch, the expert products, the SSM layers and the
+    rest."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2, moe
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    nb = cfg.n_layers // cfg.attn_every
+    model, params = _init_family(
+        torch, "hybrid", cfg, seed, card,
+        note=f" cut to {cfg.n_layers} of {full.n_layers} layers ({nb} "
+             f"superblock; the full depth is {full.param_count()} parameters "
+             f"by the config, more than one card holds in bf16; "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+             f"{cfg.n_experts} experts top-{cfg.top_k}, d_expert "
+             f"{cfg.d_expert})")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
+               for r in serve_reqs[::2]]
+    reqs, lat, launches, _ = _serve_family(torch, np, "hybrid", cfg, model,
+                                           params, prompts, HYBRID_NEW, card)
+    check(launches["flash_attention"] == len(reqs) * nb,
+          f"hybrid: flash_attention launches {launches['flash_attention']} "
+          f"!= {len(reqs)} prefills x {nb} attention layers")
+    check(launches["ragged_decode"] == len(lat) * 4 * nb,
+          f"hybrid: ragged_decode launches {launches['ragged_decode']} != "
+          f"{len(lat)} steps x 4 tokens x {nb} attention layers")
+    check(launches["ragged_prefill"] == 0, "hybrid: ragged_prefill launched")
+    # every weight but the embedding table is read once a decode step:
+    # the experts at no-drop capacity all take tokens
+    step_bytes = sum(p.numel() * p.element_size()
+                     for n, p in params.named_parameters()
+                     if n != "tok.embed")
+    print(f"[hybrid] a decode step reads {step_bytes} bytes of weights: "
+          f"at least {1e3 * step_bytes / PEAKS['SXM'][0]:.3f} ms at "
+          f"{PEAKS['SXM'][0]:.3g} B/s")
+
+    names = ("moe_apply", "expert_ffn", "ssm_layer_step")
+    restore = [_ranged(moe, names[:2]), _ranged(mamba2, names[2:])]
+    try:
+        prof = _decode_window(torch, model, params, reqs,
+                              "hybrid: 3 decode chunks x 4 tokens, 8 slots",
+                              card, ranges=names)
+    finally:
+        for r in restore:
+            r()
+    if prof is not None:
+        busy = 1e3 * prof["busy"]
+        parts = {"attention kernel": prof.get("ragged_decode", 0.0),
+                 "MoE routing and dispatch": prof.get("moe_apply", 0.0)
+                 - prof.get("expert_ffn", 0.0),
+                 "expert products": prof.get("expert_ffn", 0.0),
+                 "SSM layers": prof.get("ssm_layer_step", 0.0)}
+        parts["the rest"] = busy - sum(parts.values())
+        print(f"[hybrid] decode window: device busy share "
+              f"{prof['busy'] / prof['wall']:.3f}, {busy:.3f} ms device "
+              f"time a window of 12 token steps, {busy / 12:.3f} ms a step "
+              f"({card})")
+        print("[hybrid] decode window split: " + ", ".join(
+            f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in parts.items()))
+    _wire_check("hybrid", model, params, min(prompts, key=len), HYBRID_NEW,
+                card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. checkpoints
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS = 2
@@ -1316,7 +1517,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 9. the paper's threaded runtime
+# 11. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -1490,8 +1691,8 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8,
     kernels, each with its share, and each port kernel's sum; and for each
     ``torch.profiler.record_function`` range named in ``ranges``, the
     device time of the kernels launched inside it.  Returns ``{"wall":
-    s, "busy": s, name: device ms for each range}``, or None when the
-    profiler saw no device time."""
+    s, "busy": s, name: device ms for each range and each port kernel
+    seen}``, or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1523,14 +1724,15 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8,
         if n < top or "(anonymous namespace)" in key:
             print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x "
                   f"{dev_us / 1e6 / busy:6.1%}  {key[:90]}")
+    out = {"wall": wall, "busy": busy}
     for name, parts in PROFILE_GROUPS.items():
         got = [(d, c) for d, c, k in rows if any(p in k for p in parts)]
         if got:
             d = sum(x[0] for x in got)
+            out[name] = d / 1e3
             print(f"[profile]   {name}: {d / 1e3:.3f} ms of device time in "
                   f"{sum(x[1] for x in got)} launches, {d / 1e6 / busy:.1%} "
                   f"of the window's")
-    out = {"wall": wall, "busy": busy}
     for e in prof.key_averages():
         # the host-side range: the device time of the kernels launched
         # inside it (its GPU-side annotation is a span, gaps included)
@@ -1602,6 +1804,8 @@ def main() -> int:
         phase_wire(torch, card, model, params, reqs)
         del model, params
         phase_moe(torch, args.seed, card, reqs)
+        phase_ssm(torch, args.seed, card, reqs)
+        phase_hybrid(torch, args.seed, card, reqs)
         del reqs
         phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))

@@ -1,6 +1,7 @@
 """Model registry of the port: family -> module with a uniform interface.
-Counterpart of ``repro/models/__init__.py``; the dense and MoE families
-are ported.
+Counterpart of ``repro/models/__init__.py``; the dense, MoE, SSM
+(``mamba2``) and hybrid (``jamba``) families are ported, the vlm and
+audio families not yet.
 
 Every family module provides::
 
@@ -8,8 +9,9 @@ Every family module provides::
     prefill(cfg, p, batch)        -> (last logits, cache)
     prefill_chunk(cfg, p, tokens, cache, start, qlen)
                                   -> (last live logits, cache)   in place
-                                  (dense only: an MoE prompt prefills
-                                  whole, as in the reference)
+                                  (dense only: an MoE, SSM or hybrid
+                                  prompt prefills whole, as in the
+                                  reference)
     decode(cfg, p, token, pos, cache) -> (logits, cache)   cache in place
     cache_spec(cfg, B, S)         -> {leaf: (shape, dtype)}
     cache_logical_axes(cfg), cache_seq_axes(cfg)
@@ -32,7 +34,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import moe, sessions, transformer
+from . import jamba, mamba2, moe, sessions, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +61,8 @@ class Model:
                                   # for a family without a chunkable prefill
 
 
-_FAMILY = {"dense": transformer, "moe": moe}
+_FAMILY = {"dense": transformer, "moe": moe, "ssm": mamba2,
+           "hybrid": jamba}
 
 
 def _fused_decode(cfg: ModelConfig, mod) -> Callable:

@@ -3,28 +3,43 @@
 :func:`params_from_numpy` takes the reference's parameter tree with every
 leaf a numpy array (``jax.tree.map(np.asarray, params)``) or a tensor (what
 :func:`repro_torch.checkpoint.load_checkpoint` returns): a nested dict
-whose per-layer leaves are stacked on a leading L axis and whose weights
+whose per-layer leaves are stacked on leading layer axes and whose weights
 are ``(in, out)``.  The port keeps the ``(in, out)`` layout, so carrying a
-layer over is slicing it off the L axis.  :func:`params_to_numpy` is its
-inverse: the port's modules as that tree, per-layer tensors stacked back
-on the L axis, under the reference's key names and in its ``param_dtype``,
-so a checkpoint the port writes loads through the JAX package's
-``load_checkpoint(target_tree=init(...))``.  Both import nothing of JAX and
-take the dense and the MoE (``moe_every == 1``) families.
+layer over is slicing it off those axes.  :func:`params_to_numpy` is its
+inverse: the port's modules as that tree, per-layer tensors stacked back,
+under the reference's key names and in its ``param_dtype``, so a
+checkpoint the port writes loads through the JAX package's
+``load_checkpoint(target_tree=init(...))``.  Both import nothing of JAX.
+
+The trees, by family:
+
+* dense, MoE (``moe_every == 1``), SSM: ``tok``, ``layers`` (every leaf
+  stacked on ``L``: ``ln1`` / ``attn`` / ``ln2`` / ``mlp`` or ``moe``, or
+  for the SSM ``ln`` / ``ssm``) and ``ln_f``;
+* hybrid: ``tok``, ``attn_layers`` stacked on ``(nb,)``, ``mamba_moe`` on
+  ``(nb, 4)``, ``mamba_dense`` on ``(nb, 3)`` (``ln1`` / ``ssm`` / ``ln2``
+  / ``moe`` or ``mlp``) and ``ln_f``.
+
+The port's modules carry the reference's names for their tensors and
+sub-modules, so :func:`params_to_numpy` reads a layer's tree off the
+module itself (:func:`_module_tree`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from . import jamba
 from . import layers as L
+from .mamba2 import SSM, SSMLayer
 from .moe import MoE, MoEBlock, _check_layout
 from .transformer import Block, Transformer
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -36,8 +51,14 @@ def _check_family(cfg: ModelConfig) -> None:
         _check_layout(cfg)
 
 
+def _take(tree: dict, idx) -> dict:
+    """Every leaf of a nested dict indexed by ``idx``."""
+    return {k: _take(v, idx) if isinstance(v, dict) else v[idx]
+            for k, v in tree.items()}
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
-                      ) -> Transformer:
+                      ) -> Transformer | jamba.Jamba:
     _check_family(cfg)
     device = resolve_device(device)
 
@@ -46,27 +67,65 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
             return a.to(device=device, dtype=torch.float32)
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
+    def ts(d: dict) -> dict:
+        return {k: t(v) for k, v in d.items()}
+
     def norm(d: dict) -> L.Norm:
         return L.Norm(t(d["scale"]), t(d["bias"]) if "bias" in d else None)
 
+    def ffn(d: dict):
+        return MoE(cfg, ts(d["moe"])) if "moe" in d else L.MLP(cfg,
+                                                              ts(d["mlp"]))
+
+    def attn_layer(d: dict):
+        cls = MoEBlock if "moe" in d else Block
+        return cls(norm(d["ln1"]), L.Attention(cfg, ts(d["attn"])),
+                   norm(d["ln2"]), ffn(d))
+
+    def mamba_layer(d: dict) -> jamba.MambaBlock:
+        return jamba.MambaBlock(norm(d["ln1"]), SSM(cfg, ts(d["ssm"])),
+                                norm(d["ln2"]), ffn(d))
+
     tok = tree["tok"]
-    lay = tree["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        at_i = lambda d: {k: t(v[i]) for k, v in d.items()}
-        ln1 = norm({k: v[i] for k, v in lay["ln1"].items()})
-        attn = L.Attention(cfg, at_i(lay["attn"]))
-        ln2 = norm({k: v[i] for k, v in lay["ln2"].items()})
-        if cfg.family == "moe":
-            layers.append(MoEBlock(ln1, attn, ln2, MoE(cfg, at_i(lay["moe"]))))
-        else:
-            layers.append(Block(ln1, attn, ln2, L.MLP(cfg, at_i(lay["mlp"]))))
     embed = L.Embedding(cfg, t(tok["embed"]),
                         t(tok["lm_head"]) if "lm_head" in tok else None)
-    return Transformer(embed, layers, norm(tree["ln_f"]))
+    ln_f = norm(tree["ln_f"])
+    if cfg.family == "hybrid":
+        blocks = [jamba.SuperBlock(
+            attn_layer(_take(tree["attn_layers"], b)),
+            [mamba_layer(_take(tree["mamba_moe"], (b, i)))
+             for i in range(jamba.N_MOE)],
+            [mamba_layer(_take(tree["mamba_dense"], (b, i)))
+             for i in range(jamba.N_DENSE)])
+            for b in range(cfg.n_layers // cfg.attn_every)]
+        return jamba.Jamba(embed, blocks, ln_f)
+    lay = tree["layers"]
+    if cfg.family == "ssm":
+        layers = [SSMLayer(norm(_take(lay["ln"], i)),
+                           SSM(cfg, ts(_take(lay["ssm"], i))))
+                  for i in range(cfg.n_layers)]
+    else:
+        layers = [attn_layer(_take(lay, i)) for i in range(cfg.n_layers)]
+    return Transformer(embed, layers, ln_f)
 
 
-def params_to_numpy(cfg: ModelConfig, model: Transformer) -> dict:
+def _module_tree(m: nn.Module) -> dict:
+    """A module's tensors and sub-modules as a nested dict under their
+    attribute names (an absent optional tensor is no key)."""
+    out = dict(m.named_parameters(recurse=False))
+    out.update({n: _module_tree(c) for n, c in m.named_children()})
+    return out
+
+
+def _stacked(trees: list[dict]) -> dict:
+    """Nested dicts of equal structure, each leaf stacked on a new axis."""
+    return {k: _stacked([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def params_to_numpy(cfg: ModelConfig, model: Transformer | jamba.Jamba
+                    ) -> dict:
     """The reference's parameter tree of ``model``, numpy leaves in
     ``cfg.param_dtype``.  Weights the port keeps in a narrower compute
     dtype widen exactly, so ``params_from_numpy`` of the result rebuilds
@@ -74,32 +133,18 @@ def params_to_numpy(cfg: ModelConfig, model: Transformer) -> dict:
     _check_family(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
-    def host(x: torch.Tensor) -> np.ndarray:
-        return x.detach().to(dt).cpu().numpy()
+    def host(tree: dict) -> dict:
+        return {k: host(v) if isinstance(v, dict)
+                else v.detach().to(dt).cpu().numpy() for k, v in tree.items()}
 
-    def tensors(m, names) -> dict:
-        return {n: getattr(m, n) for n in names
-                if getattr(m, n, None) is not None}
-
-    def stacked(get) -> dict:
-        per = [get(lp) for lp in model.layers]
-        return {k: host(torch.stack([d[k] for d in per])) for k in per[0]}
-
-    ffn = ("moe", ("router", "w_gate", "w_up", "w_down")) \
-        if cfg.family == "moe" else \
-        ("mlp", ("w_gate", "w_up", "w_down", "w_in", "b_in", "w_out",
-                 "b_out"))
-    norm_names = ("scale", "bias")
-    layers = {
-        "ln1": stacked(lambda lp: tensors(lp.ln1, norm_names)),
-        "attn": stacked(lambda lp: tensors(lp.attn, (
-            "wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm"))),
-        "ln2": stacked(lambda lp: tensors(lp.ln2, norm_names)),
-        ffn[0]: stacked(lambda lp: tensors(getattr(lp, ffn[0]), ffn[1])),
-    }
-    tok = {"embed": host(model.tok.embed)}
-    if model.tok.lm_head is not None:
-        tok["lm_head"] = host(model.tok.lm_head)
-    return {"tok": tok, "layers": layers,
-            "ln_f": {k: host(v) for k, v in
-                     tensors(model.ln_f, norm_names).items()}}
+    out = {"tok": _module_tree(model.tok), "ln_f": _module_tree(model.ln_f)}
+    if cfg.family == "hybrid":
+        out["attn_layers"] = _stacked([_module_tree(sb.attn_layer)
+                                       for sb in model.blocks])
+        for name in ("mamba_moe", "mamba_dense"):
+            out[name] = _stacked([_stacked([_module_tree(lp) for lp in
+                                            getattr(sb, name)])
+                                  for sb in model.blocks])
+    else:
+        out["layers"] = _stacked([_module_tree(lp) for lp in model.layers])
+    return host(out)

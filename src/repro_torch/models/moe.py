@@ -29,10 +29,11 @@ function as its one-hot ``moe_dense`` oracle:
   its launch count does not depend on the routing.
 
 Only ``moe_every == 1`` is ported, the layout of both MoE configs; the
-alternating dense / MoE layout (the ``k_dense`` / ``k_moe`` cache) arrives
-with the hybrid family (``jamba``), which needs it.  There is no
-``prefill_chunk``, as the reference has none: the engine prefills MoE
-prompts whole.
+alternating dense / MoE layout (the ``k_dense`` / ``k_moe`` cache) is not,
+and no shipped config uses it.  The hybrid family (``models/jamba.py``)
+does not need it: it calls :func:`moe_ffn` inside its own superblock.
+There is no ``prefill_chunk``, as the reference has none: the engine
+prefills MoE prompts whole.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def _check_layout(cfg: ModelConfig) -> None:
     if cfg.moe_every != 1:
         raise NotImplementedError(
             f"moe_every={cfg.moe_every}: the alternating dense / MoE layout "
-            f"is not ported yet (ROADMAP A3, with the hybrid family)")
+            f"is not ported yet (ROADMAP A3; no shipped config uses it, and "
+            f"the hybrid family runs its own superblock)")
 
 
 class MoE(nn.Module):
@@ -80,12 +82,7 @@ class MoEBlock(nn.Module):
         self.ln1, self.attn, self.ln2, self.moe = ln1, attn, ln2, moe
 
     def ffn(self, cfg: ModelConfig, h, decode: bool = False):
-        """The MoE block in place of the dense MLP; a decode step runs at
-        no-drop capacity (the batch's token count), so no copy is
-        dropped."""
-        B, S = h.shape[:2]
-        return moe_apply(cfg, self.moe, h,
-                         min_capacity=B * S if decode else 0)
+        return moe_ffn(cfg, self.moe, h, decode)
 
 
 def _uniform(gen, shape, bound: float, device) -> torch.Tensor:
@@ -189,6 +186,15 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     w = (vals.reshape(-1) * keep).to(back.dtype)
     y = (back[slot] * w[:, None]).reshape(T, k, D).sum(dim=1)
     return y.reshape(B, S, D).to(x.dtype)
+
+
+def moe_ffn(cfg: ModelConfig, p: MoE, h: torch.Tensor,
+            decode: bool = False) -> torch.Tensor:
+    """The MoE block in place of the dense MLP (the reference's
+    ``moe_apply(..., decode=decode)``): a decode step runs at no-drop
+    capacity (the batch's token count), so no copy is dropped."""
+    B, S = h.shape[:2]
+    return moe_apply(cfg, p, h, min_capacity=B * S if decode else 0)
 
 
 # ---------------------------------------------------------------------------

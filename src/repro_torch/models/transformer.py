@@ -1,7 +1,10 @@
 """Dense decoder-only transformer (qwen2 / qwen2.5 / starcoder2 / smollm):
 the port's counterpart of ``repro/models/transformer.py``.  The MoE family
 (``models/moe.py``) shares its layer loop and cache layout: each layer
-runs its own feed-forward through ``ffn``.
+runs its own feed-forward through ``ffn``.  The hybrid family
+(``models/jamba.py``) runs its attention layers through the same block
+functions without RoPE, and the SSM family (``models/mamba2.py``) keeps
+its parameters in the same :class:`Transformer` container.
 
 Layers are a Python loop over per-layer ``nn.Module``s where the reference
 scans stacked layer parameters (``lax.scan``) under ``jax.checkpoint``;
@@ -37,9 +40,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense or MoE model: ``tok`` (embedding and
-    head), ``layers`` (one :class:`Block`, or ``moe.MoEBlock``, per layer)
-    and ``ln_f``."""
+    """The parameters of a model whose layers form one list (dense, MoE,
+    SSM): ``tok`` (embedding and head), ``layers`` (one :class:`Block`,
+    ``moe.MoEBlock`` or ``mamba2.SSMLayer`` per layer) and ``ln_f``."""
 
     def __init__(self, tok: L.Embedding, layers: list[Block], ln_f: L.Norm):
         super().__init__()
@@ -86,9 +89,11 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # blocks
 # ---------------------------------------------------------------------------
 
-def _block_prefill(cfg: ModelConfig, lp: Block, x, positions):
+def _block_prefill(cfg: ModelConfig, lp: Block, x, positions,
+                   rope: bool = True):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
-    a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions)
+    a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions,
+                                rope=rope)
     x = x + a
     h = L.apply_norm(lp.ln2, x, cfg.norm)
     x = x + lp.ffn(cfg, h)
@@ -106,10 +111,10 @@ def _block_prefill_chunk(cfg: ModelConfig, lp: Block, x, kfull, vfull,
 
 
 def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
-                  layer_idx: int, pos):
+                  layer_idx: int, pos, rope: bool = True):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
     x = x + L.attention_decode_inplace(cfg, lp.attn, h, kfull, vfull,
-                                       layer_idx, pos)
+                                       layer_idx, pos, rope=rope)
     h = L.apply_norm(lp.ln2, x, cfg.norm)
     return x + lp.ffn(cfg, h, decode=True)
 

@@ -230,8 +230,8 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         if req.extras:
             raise NotImplementedError(
-                "prefill extras (non-dense families) are not ported to "
-                "repro_torch yet (ROADMAP A3)")
+                "prefill extras (the vlm and audio families' inputs) are "
+                "not ported to repro_torch yet (ROADMAP A3)")
         self.queue.append(req)
 
     # -- crash / restart (fault injection surface) -------------------------
