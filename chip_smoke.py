@@ -14,9 +14,14 @@ Phases, in order; any failure exits non-zero before the last line:
              also at the edges of their designs: ragged decode with one
              slot at the cache's end, every slot at 0, positions at the
              chosen split's edges and past the cache, rep 16, hd 128, and
-             the MoE family's 16/8 heads (rep 2) and the hybrid's 32/8,
-             hd 128 (rep 4); flash prefill at 2048 and 17 tokens, hd 128,
-             Sq != Skv, and 992 tokens at 16/8 and at 32/8, hd 128;
+             the MoE family's 16/8 heads (rep 2), the hybrid's 32/8,
+             hd 128 (rep 4), and the vlm's 64/8, hd 128 (rep 8) at its
+             cross cache of 1601 rows and its self cache; flash prefill at
+             2048 and 17 tokens, hd 128, Sq != Skv, 992 tokens at 16/8 and
+             at 32/8, hd 128, the vlm's self (992 causal) and cross (992
+             queries, 1601 image keys) prefills at 64/8, hd 128, and
+             hubert-xlarge's 8 x 1000 frames at 16/16, hd 80 in bf16 and
+             float32;
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
              chunks crossing, starting at and starting past the cache's
@@ -83,11 +88,31 @@ Phases, in order; any failure exits non-zero before the last line:
              a profiled decode window split into the attention kernel,
              the MoE routing and dispatch, the expert products, the SSM
              layers and the rest;
-10. checkpoint — the MoE model's parameters cut to 2 layers, written by
+10. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
+             (10 of 100 layers: 8 self layers and 2 gated cross layers at
+             64/8 heads, hd 128, 1601 image tokens), the cross gates set
+             nonzero, the same prompts, each with its own seeded image
+             (1601 x 8192 float32), 16 new tokens each; exact launch
+             counts (10 flash per prefill, 10 ragged decode per token step,
+             no ragged prefill); one prompt with two images gives two
+             streams; a wire migration mid-decode (the image and the whole
+             cross cache travel) is identical; tok/s, TPOT, TTFT, peak
+             memory, the weight bytes a step reads and their bound, and a
+             profiled decode window split into the self-attention kernel,
+             the cross-attention kernel and the rest;
+11. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
+             heads of 80, 945 M parameters): ``Model.forward`` over 8
+             seeded clips of 1000 frames, warmed then timed; logits
+             (8, 1000, 504) finite, 48 flash launches a forward, clip 0
+             within a stated limit of the plain attention path's; one
+             ``Model.prefill``; frames/s, ms a forward, the device-busy
+             share, the share of the bf16 peak from the shapes' operations,
+             peak memory;
+12. checkpoint — the MoE model's parameters cut to 2 layers, written by
              ``params_to_numpy`` + ``save_checkpoint`` and read back by
              ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
              prompt's logits bit-identical; seconds and bytes;
-11. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+13. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -266,8 +291,7 @@ def ragged_decode_case(torch, F, rd, gen, peaks, flush, dt, Smax, tol,
 
 
 def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol,
-               Skv=None, hd=64, Hq=14, Hkv=2):
-    B = 1
+               Skv=None, hd=64, Hq=14, Hkv=2, B=1):
     Sq, Skv = S, Skv or S
     dev = "cuda"
     # the model's (B, S, H, hd) activations, passed as (B, H, S, hd) views
@@ -646,6 +670,14 @@ def phase_kernels(torch, seed, peaks):
                 # the hybrid family's heads (jamba: 32/8, rep 4, hd 128)
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
                                    rd_Smax, 2e-2, Hq=32, Hkv=8, hd=128),
+                # the vlm's heads (64/8, rep 8, hd 128): its cross decode
+                # (Smax 1601, not a multiple of the 64-row tile, every slot
+                # at the last image row) and its self decode
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   VLM_IMAGE_TOKENS, 2e-2, Hq=64, Hkv=8,
+                                   hd=128, pos=[VLM_IMAGE_TOKENS - 1] * 8),
+                ragged_decode_case(torch, F, rd, gen, peaks, flush, bf16,
+                                   rd_Smax, 2e-2, Hq=64, Hkv=8, hd=128),
                 ragged_decode_case(torch, F, rd, gen, peaks, flush, f32,
                                    1000, 1e-4)]
     # the serving prompt's size first; then a shorter prompt, non-causal,
@@ -671,6 +703,21 @@ def phase_kernels(torch, seed, peaks):
                 # and at the hybrid's 32/8 heads, hd 128 (rep 4)
                 flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
                            True, 2e-2, Hq=32, Hkv=8, hd=128),
+                # the vlm's 64/8 heads, hd 128 (rep 8): a self layer's
+                # prefill, and a cross layer's (Skv = 1601 image tokens, the
+                # last key tile holding one live row)
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
+                           True, 2e-2, Hq=64, Hkv=8, hd=128),
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 992,
+                           False, 2e-2, Skv=VLM_IMAGE_TOKENS, Hq=64, Hkv=8,
+                           hd=128),
+                # hubert-xlarge's forward: 8 clips of 1000 frames, 16/16
+                # heads, hd 80 (the 128-wide tiles, zero-filled), in bf16
+                # and float32
+                flash_case(torch, F, fa, gen, peaks, flush, bf16, 1000,
+                           False, 2e-2, Hq=16, Hkv=16, hd=80, B=8),
+                flash_case(torch, F, fa, gen, peaks, flush, f32, 1000,
+                           False, 1e-4, Hq=16, Hkv=16, hd=80, B=8),
                 flash_case(torch, F, fa, gen, peaks, flush, f32, 333,
                            True, 1e-4)]
     # the serving chunk (a 4th chunk of 256 tokens), the first and the last
@@ -1046,8 +1093,10 @@ def _wire_move(src, dst, rid, link, prefill: bool):
                               decode_ms=decode_ms)
 
 
-def _wire_solo(model, params, prompt, max_new, after, chunk_tokens=0):
-    """One request alone on an 8-slot engine: to the end (``after`` None),
+def _wire_solo(model, params, prompt, max_new, after, chunk_tokens=0,
+               extras=None):
+    """One request (with ``extras``, if given) alone on an 8-slot engine:
+    to the end (``after`` None),
     or moved after ``after`` steps through the wire and a
     ``LoopbackTransport`` to a second engine of the same shape, where it
     finishes (mid-decode, or mid-prefill with ``chunk_tokens``).  Returns
@@ -1059,7 +1108,8 @@ def _wire_solo(model, params, prompt, max_new, after, chunk_tokens=0):
         return ServeEngine(model, params, max_batch=8, max_seq=2048,
                            decode_chunk=4, prefill_chunk_tokens=chunk_tokens)
 
-    req = Request(rid=0, prompt=prompt, max_new=max_new)
+    req = Request(rid=0, prompt=prompt, max_new=max_new,
+                  extras=extras or {})
     a = engine()
     a.submit(req)
     if after is None:
@@ -1178,9 +1228,10 @@ def _init_family(torch, tag, cfg, seed, card, note=""):
 
 
 def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
-                  card):
-    """The prompts through an 8-slot engine (``max_seq`` 2048, chunks of 4)
-    after a warm-up request: every request finishes with ``max_new``
+                  card, extras=None):
+    """The prompts (with ``extras[i]`` as request i's extras, if given)
+    through an 8-slot engine (``max_seq`` 2048, chunks of 4) after a
+    warm-up request: every request finishes with ``max_new``
     in-vocabulary tokens.  The attention kernels' counts are set to 0 just
     before the run and read just after.  Prints tok/s, TPOT, TTFT and the
     peak memory; returns the requests, the per-token step latencies, the
@@ -1189,9 +1240,11 @@ def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
     from repro_torch.kernels.ragged_decode import ops as rd
     from repro_torch.kernels.ragged_prefill import ops as rp
     from repro_torch.serve import Request, ServeEngine
+    extras = extras or [{} for _ in prompts]
     warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
                        decode_chunk=4)
-    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8))
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8,
+                        extras=extras[0]))
     warm.run_until_drained()
     del warm                  # its idle batch cache must not count in the peak
 
@@ -1200,8 +1253,8 @@ def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
     cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
                       .element_size() for shape, dt in
                       model.cache_spec(8, 2048).values())
-    reqs = [Request(rid=i, prompt=p, max_new=max_new)
-            for i, p in enumerate(prompts)]
+    reqs = [Request(rid=i, prompt=p, max_new=max_new, extras=x)
+            for i, (p, x) in enumerate(zip(prompts, extras))]
     lat = []
     engine.on_step_latency = lat.append
     for r in reqs:
@@ -1245,22 +1298,26 @@ def _decode_window(torch, model, params, reqs, label, card, ranges=()):
     eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
                       decode_chunk=4)
     for r in reqs:
-        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64,
+                           extras=r.extras))
     eng.step()                        # admits all 8, first chunk
     return _profile_window(torch, lambda: [eng.step() for _ in range(3)],
                            label, card, ranges=ranges)
 
 
-def _wire_check(tag, model, params, prompt, max_new, card):
+def _wire_check(tag, model, params, prompt, max_new, card, extras=None):
     """A session moved through the wire after 3 steps continues the
-    unmigrated stream."""
-    ref, _, _ = _wire_solo(model, params, prompt, max_new, None)
-    got, data, times = _wire_solo(model, params, prompt, max_new, 3)
+    unmigrated stream, which is returned."""
+    ref, _, _ = _wire_solo(model, params, prompt, max_new, None,
+                           extras=extras)
+    got, data, times = _wire_solo(model, params, prompt, max_new, 3,
+                                  extras=extras)
     check(got == ref, f"{tag}: wire-migrated stream differs:\n{got}\n{ref}")
     _print_wire(tag, f"mid-decode session of a {len(prompt)}-token prompt",
                 data, times, card)
     print(f"[{tag}] migration: {len(got)} tokens identical to the "
           f"unmigrated stream")
+    return ref
 
 
 def phase_moe(torch, seed, card, serve_reqs):
@@ -1456,7 +1513,236 @@ def phase_hybrid(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 10. checkpoints
+# 10. the vlm family
+# ---------------------------------------------------------------------------
+
+VLM_LAYERS = 10              # two superblocks: the stacked nb axis is checked
+VLM_NEW = 16                 # new tokens a request, as the hybrid's
+VLM_IMAGE_TOKENS = 1601      # llama-3.2-vision-90b's n_image_tokens
+VLM_GATES = ((0.7, -0.4), (0.5, 0.3))   # (attn, mlp) gates per superblock
+
+
+def _attention_split(cfg, prof):
+    """The ragged_decode kernel's device time in a profiled decode window,
+    split by the layer each call served: the calls come in layer order,
+    ``n_layers`` a token step, each a split launch and a combine launch,
+    and layer ``i`` of a step is a cross layer when ``cfg.is_cross_layer(i)``.
+    Returns {"self-attention kernel": ms, "cross-attention kernel": ms},
+    or None when the window's launches do not fit that order."""
+    calls = prof.get("sequence", {}).get("ragged_decode", [])
+    splits = [c for c in calls if "decode_split_" in c[2]]
+    combines = [c for c in calls if "decode_combine" in c[2]]
+    if (not splits or len(splits) != len(combines)
+            or len(splits) % cfg.n_layers):
+        return None
+    out = {"self-attention kernel": 0.0, "cross-attention kernel": 0.0}
+    for i, (a, b) in enumerate(zip(splits, combines)):
+        kind = "cross" if cfg.is_cross_layer(i % cfg.n_layers) else "self"
+        out[f"{kind}-attention kernel"] += (a[1] + b[1]) / 1e3
+    return out
+
+
+def phase_vlm(torch, seed, card, serve_reqs):
+    """llama-3.2-vision-90b at full width, cut to two superblocks (10 of
+    100 layers: 87.7 B parameters by the config do not fit one card's 80 GB
+    in bf16), every cross layer's gates set nonzero, through
+    ``ServeEngine``: 8 requests (the serve phase's prompt lengths, every
+    other one), each with its own seeded image, 16 new tokens each; kernel
+    launches exact (10 flash per prefill, 8 self and 2 cross; 10 ragged
+    decode per token step; no ragged prefill); one prompt with two images
+    gives two streams; a session (its image and whole cross cache with it)
+    moved through the wire mid-decode continues the unmigrated stream; a
+    profiled decode window split into the self-attention kernel, the
+    cross-attention kernel and the rest."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    check(cfg.n_image_tokens == VLM_IMAGE_TOKENS, "image token count")
+    nb = cfg.n_layers // cfg.cross_attn_every
+    model, params = _init_family(
+        torch, "vlm", cfg, seed, card,
+        note=f" cut to {cfg.n_layers} of {full.n_layers} layers ({nb} "
+             f"superblocks of {cfg.cross_attn_every - 1} self layers and 1 "
+             f"cross layer; the full depth is {full.param_count()} "
+             f"parameters by the config, more than one card holds in bf16; "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+             f"{cfg.d_ff}, {cfg.n_image_tokens} image tokens)")
+    with torch.no_grad():
+        for sb, (g_attn, g_mlp) in zip(params.blocks, VLM_GATES):
+            sb.cross.gate_attn.fill_(g_attn)
+            sb.cross.gate_mlp.fill_(g_mlp)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
+               for r in serve_reqs[::2]]
+    images = [rng.standard_normal((cfg.n_image_tokens, cfg.d_model),
+                                  dtype=np.float32) for _ in prompts]
+    reqs, lat, launches, _ = _serve_family(
+        torch, np, "vlm", cfg, model, params, prompts, VLM_NEW, card,
+        extras=[{"image_embeds": img} for img in images])
+    check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
+          f"vlm: flash_attention launches {launches['flash_attention']} != "
+          f"{len(reqs)} prefills x {cfg.n_layers} layers ({nb} cross)")
+    check(launches["ragged_decode"] == len(lat) * 4 * cfg.n_layers,
+          f"vlm: ragged_decode launches {launches['ragged_decode']} != "
+          f"{len(lat)} steps x 4 tokens x {cfg.n_layers} layers")
+    check(launches["ragged_prefill"] == 0, "vlm: ragged_prefill launched")
+    # every weight but the embedding table is read once a decode step
+    step_bytes = sum(p.numel() * p.element_size()
+                     for n, p in params.named_parameters()
+                     if n != "tok.embed")
+    print(f"[vlm] a decode step reads {step_bytes} bytes of weights: at "
+          f"least {1e3 * step_bytes / PEAKS['SXM'][0]:.3f} ms at "
+          f"{PEAKS['SXM'][0]:.3g} B/s")
+
+    prof = _decode_window(torch, model, params, reqs,
+                          "vlm: 3 decode chunks x 4 tokens, 8 slots", card)
+    parts = _attention_split(cfg, prof) if prof is not None else None
+    if parts is None:
+        print("[vlm] decode window split: not measured (the profile holds "
+              "no ragged_decode launches in layer order)")
+    else:
+        busy = 1e3 * prof["busy"]
+        parts["the rest"] = busy - sum(parts.values())
+        print(f"[vlm] decode window: device busy share "
+              f"{prof['busy'] / prof['wall']:.3f}, {busy:.3f} ms device "
+              f"time a window of 12 token steps, {busy / 12:.3f} ms a step "
+              f"({card})")
+        print("[vlm] decode window split: " + ", ".join(
+            f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in parts.items()))
+
+    # the image reaches the output: one prompt, two images, two streams;
+    # and the first image's stream survives a wire migration
+    prompt = min(prompts, key=len)
+    ref = _wire_check("vlm", model, params, prompt, VLM_NEW, card,
+                      extras={"image_embeds": images[0]})
+    other, _, _ = _wire_solo(model, params, prompt, VLM_NEW, None,
+                             extras={"image_embeds": images[1]})
+    check(other != ref, "vlm: two images gave the same token stream")
+    first = next(i for i, (a, b) in enumerate(zip(ref, other)) if a != b)
+    print(f"[vlm] one {len(prompt)}-token prompt, two images: the streams "
+          f"differ from token {first} on")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 11. the audio family
+# ---------------------------------------------------------------------------
+
+AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000     # 20 s of audio each at 50 Hz
+AUDIO_TIMED = 3
+# the kernel path's logits against the plain path's on one clip, bf16:
+# 48 layers of about 8 roundings of 2^-9 each, adding like a random walk,
+# reach sqrt(384) * 2^-9 = 3.8 % of the logits' scale; the limit is twice
+# that, of the largest logit magnitude
+AUDIO_REL_LIMIT = 2 * math.sqrt(48 * 8) * 2.0 ** -9
+
+
+def _forward_flops(cfg, B: int, S: int) -> int:
+    """Operations of one encoder forward from its shapes: the projections,
+    the non-causal attention (Q K^T and P V) and the MLP of every layer,
+    and the head."""
+    D, hd, F = cfg.d_model, cfg.hd, cfg.d_ff
+    proj = 2 * D * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    attn = 4 * cfg.n_heads * hd * S
+    mlp = 2 * 2 * D * F
+    return B * S * (cfg.n_layers * (proj + attn + mlp) + 2 * D * cfg.vocab)
+
+
+def phase_audio(torch, seed, card):
+    """hubert-xlarge at full width and depth (48 layers, 16/16 heads of
+    80): ``Model.forward`` over 8 seeded clips of 1000 frames, once to
+    warm and then timed; logits of shape (8, 1000, 504), finite, 48 flash
+    launches a forward, clip 0's logits within a stated limit of the plain
+    path's; then one ``Model.prefill``.  Reports frames/s, ms a forward,
+    the device-busy share, the share of the bf16 peak and peak memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+
+    cfg = get_config("hubert-xlarge")
+    model, params = _init_family(
+        torch, "audio", cfg, seed, card,
+        note=f" ({cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+             f"{cfg.d_ff}, LayerNorm, gelu, non-causal)")
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.standard_normal(
+        (AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model), dtype=np.float32)).to(
+        params.device)
+    batch = {"frames": frames}
+    shape = (AUDIO_CLIPS, AUDIO_FRAMES, cfg.vocab)
+    model.forward(params, batch)                      # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0                                   # this path's run only
+    logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == shape, f"audio: logits {tuple(logits.shape)}"
+                                        f" != {shape}")
+    check(bool(torch.isfinite(logits).all()), "audio: non-finite logits")
+    check(launches == cfg.n_layers, f"audio: flash_attention launches "
+                                    f"{launches} != {cfg.n_layers} layers")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(AUDIO_TIMED):
+        model.forward(params, batch)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / AUDIO_TIMED
+    flops = _forward_flops(cfg, AUDIO_CLIPS, AUDIO_FRAMES)
+    print(f"[audio] forward of {AUDIO_CLIPS} clips x {AUDIO_FRAMES} frames: "
+          f"{ms:.3f} ms (mean of {AUDIO_TIMED}), "
+          f"{AUDIO_CLIPS * AUDIO_FRAMES / ms * 1e3:.1f} frames/s; "
+          f"{flops} operations from the shapes, {flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {flops / ms / 1e-3 / PEAKS['SXM'][1]:.1%} of the bf16 "
+          f"peak; peak device memory {peak} bytes ({card})")
+    prof = _profile_window(torch, lambda: model.forward(params, batch),
+                           f"audio: forward of {AUDIO_CLIPS} x "
+                           f"{AUDIO_FRAMES} frames", card)
+    if prof is not None:
+        print(f"[audio] forward: device busy share "
+              f"{prof['busy'] / prof['wall']:.3f} ({card})")
+
+    # the same clip through the plain attention: the kernel path agrees
+    one = {"frames": frames[:1]}
+    kernel, layers.flash_attention = layers.flash_attention, attention_ref
+    try:
+        plain = model.forward(params, one)
+    finally:
+        layers.flash_attention = kernel
+    err = (logits[:1].float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    check(err <= AUDIO_REL_LIMIT * scale,
+          f"audio: clip 0's logits differ from the plain path's by {err} > "
+          f"{AUDIO_REL_LIMIT:.4f} x {scale}")
+    print(f"[audio] clip 0 against the plain attention path: max abs diff "
+          f"{err:.4g}, {err / scale:.4f} of the largest logit {scale:.4g} "
+          f"(limit {AUDIO_REL_LIMIT:.4f})")
+
+    n0 = fa.launches
+    last, cache = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    check(fa.launches - n0 == cfg.n_layers, "audio: prefill launches")
+    check(tuple(last.shape) == (AUDIO_CLIPS, 1, cfg.vocab)
+          and bool(torch.isfinite(last).all()), "audio: prefill logits")
+    kv = (cfg.n_layers, AUDIO_CLIPS, AUDIO_FRAMES, cfg.n_kv_heads, cfg.hd)
+    check(all(tuple(c.shape) == kv for c in cache.values()),
+          "audio: prefill cache shapes")
+    print(f"[audio] prefill: last-frame logits {tuple(last.shape)}, caches "
+          f"{kv} x 2, {fa.launches - n0} flash launches")
+    return {"flash_attention": launches}
+
+
+# ---------------------------------------------------------------------------
+# 12. checkpoints
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS = 2
@@ -1517,7 +1803,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 11. the paper's threaded runtime
+# 13. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -1692,7 +1978,8 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8,
     ``torch.profiler.record_function`` range named in ``ranges``, the
     device time of the kernels launched inside it.  Returns ``{"wall":
     s, "busy": s, name: device ms for each range and each port kernel
-    seen}``, or None when the profiler saw no device time."""
+    seen, "sequence": {port kernel: its launches in start order}}``, or
+    None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1724,7 +2011,18 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8,
         if n < top or "(anonymous namespace)" in key:
             print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x "
                   f"{dev_us / 1e6 / busy:6.1%}  {key[:90]}")
-    out = {"wall": wall, "busy": busy}
+    out = {"wall": wall, "busy": busy, "sequence": {}}
+    # each port kernel's launches in start order: (start us, device us,
+    # name), for a caller that splits them by the layer they served
+    for e in prof.events():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        for name, parts in PROFILE_GROUPS.items():
+            if any(p in e.name for p in parts):
+                out["sequence"].setdefault(name, []).append(
+                    (e.time_range.start, e.time_range.elapsed_us(), e.name))
+    for seq in out["sequence"].values():
+        seq.sort()
     for name, parts in PROFILE_GROUPS.items():
         got = [(d, c) for d, c, k in rows if any(p in k for p in parts)]
         if got:
@@ -1803,9 +2101,14 @@ def main() -> int:
         launches["ragged_prefill"] = chunked["ragged_prefill"]
         phase_wire(torch, card, model, params, reqs)
         del model, params
-        phase_moe(torch, args.seed, card, reqs)
-        phase_ssm(torch, args.seed, card, reqs)
-        phase_hybrid(torch, args.seed, card, reqs)
+        # every serving path's launches: each phase's run counts from 0
+        for path in (phase_moe(torch, args.seed, card, reqs),
+                     phase_ssm(torch, args.seed, card, reqs),
+                     phase_hybrid(torch, args.seed, card, reqs),
+                     phase_vlm(torch, args.seed, card, reqs),
+                     phase_audio(torch, args.seed, card)):
+            for kernel, n in (path or {}).items():
+                launches[kernel] = launches.get(kernel, 0) + n
         del reqs
         phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))

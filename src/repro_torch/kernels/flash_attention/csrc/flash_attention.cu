@@ -41,7 +41,13 @@
 //     causal tiles above the diagonal are never loaded;
 //   * shared memory is Q plus two rings of K/V: 73 KB at hd 64 (two
 //     blocks per SM, as the registers allow), 145 KB at hd 128, above the
-//     default 48 KB: the limit is raised once per instantiation.
+//     default 48 KB: the limit is raised once per instantiation;
+//   * hd 80 (hubert-xlarge's 1280 / 16) is not a whole number of 64-wide
+//     boxes.  It runs the hd-128 instantiation with the tensor maps' inner
+//     extent set to the true 80: TMA zero-fills the second box's columns
+//     80-127, which leaves Q K^T unchanged; Q K^T stops after the fifth
+//     k16 step, O += P V still computes 128 columns (48 of them zero), and
+//     only 80 are written.  No copy and no padding pass.
 // float32 keeps a CUDA-core kernel (below), routed by type: there are no
 // f32 tensor cores without TF32, and the f32 check does not allow TF32.
 // The wrapper refuses bf16 operands whose base or strides TMA cannot take
@@ -78,6 +84,9 @@ using sm90::fast_exp2;
 using sm90::load_tile;
 using sm90::MapAxes;
 
+// HD is the staged width (64 or 128), HDT <= HD the true head width, a
+// multiple of 16 (the tensor maps' inner extent; columns past it arrive
+// zero and are not written).
 // Grid (ceil(Sq / 64) * Hq * B), 256 threads: two warpgroups share the Q
 // tile and take alternate key tiles (even, odd), each with its own ring
 // and online softmax; they merge (m, l, O) through shared memory at the
@@ -85,7 +94,7 @@ using sm90::MapAxes;
 // pair_from > 0 (causal, every block resident at once) blocks pair_from..
 // take the remaining items lightest first, so that the second block on an
 // SM is light where the first is heavy.
-template <int HD>
+template <int HD, int HDT>
 __global__ void __launch_bounds__(256)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -166,7 +175,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
     // S = Q K^T (64 x 64), 16 columns of hd per step
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDT / 16; ++kk) {
       const int off = (kk / 4) * kBox + (kk % 4) * 16;
       sm90::wgmma_ss_m64n64k16(s, sm90::wgmma_desc_sw128(q_s + off, 16, 1024),
                                sm90::wgmma_desc_sw128(kt + off, 16, 1024),
@@ -286,7 +295,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (qpos[r] >= Sq) continue;
     bf16* orow = ob + qpos[r] * os_s + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HDT / 8; ++j) {
       const int a = 4 * j + 2 * r;
       const float y0 = (c0[r] * o[a] + c1[r] * x_o[a * 128 + wtid]) * inv[r];
       const float y1 =
@@ -398,7 +407,7 @@ void launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // ---------------------------------------------------------------- launch
 
-template <int HD>
+template <int HD, int HDT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int Hq, int Hkv, int Sq, int Skv,
                         const Strides& st, int causal, float scale,
@@ -406,14 +415,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   // align + Q + 2 warpgroups x kStages x (K, V)
   constexpr int kSmem = 1024 + (1 + 4 * kStages) * kRows * HD * 2;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bf16_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_wgmma<HD, HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap qm, km, vm;
   MapAxes qa, ka, va;
-  if (!sm90::make_map(&qm, &qa, q, B, Hq, Sq, HD, st.q) ||
-      !sm90::make_map(&km, &ka, k, B, Hkv, Skv, HD, st.k) ||
-      !sm90::make_map(&vm, &va, v, B, Hkv, Skv, HD, st.v))
+  if (!sm90::make_map(&qm, &qa, q, B, Hq, Sq, HDT, st.q) ||
+      !sm90::make_map(&km, &ka, k, B, Hkv, Skv, HDT, st.k) ||
+      !sm90::make_map(&vm, &va, v, B, Hkv, Skv, HDT, st.v))
     return cudaErrorInvalidValue;
   // all blocks resident at once (a causal prompt up to ~2k tokens at
   // qwen2-0.5b's heads): pair heavy and light query tiles on an SM
@@ -423,12 +432,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_bf16_wgmma<HD>, 256, kSmem);
+        &per_sm, flash_bf16_wgmma<HD, HDT>, 256, kSmem);
   }
   const long long items = 1LL * ((Sq + kRows - 1) / kRows) * Hq * B;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
   const int pair_from = causal && items <= 1LL * sms * per_sm ? sms : 0;
-  flash_bf16_wgmma<HD><<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
+  flash_bf16_wgmma<HD, HDT>
+      <<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
       qm, km, vm, qa, ka, va, static_cast<bf16*>(out), st.o[0], st.o[1],
       st.o[2], Hq, Hkv, Sq, Skv, causal, scale * 1.4426950408889634f, B,
       pair_from);
@@ -460,15 +470,21 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   if (dtype == 0 && hd == 64)
     launch_f32<64, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
                            scale, s);
+  else if (dtype == 0 && hd == 80)
+    launch_f32<80, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                           scale, s);
   else if (dtype == 0 && hd == 128)
     launch_f32<128, 64, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
                             scale, s);
   else if (dtype == 1 && hd == 64)
-    err = launch_bf16<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                          scale, s);
+    err = launch_bf16<64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
+                              scale, s);
+  else if (dtype == 1 && hd == 80)
+    err = launch_bf16<128, 80>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
+                               causal, scale, s);
   else if (dtype == 1 && hd == 128)
-    err = launch_bf16<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                           scale, s);
+    err = launch_bf16<128, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
+                                causal, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,17 +1,20 @@
 """Model registry of the port: family -> module with a uniform interface.
-Counterpart of ``repro/models/__init__.py``; the dense, MoE, SSM
-(``mamba2``) and hybrid (``jamba``) families are ported, the vlm and
-audio families not yet.
+Counterpart of ``repro/models/__init__.py``: all six families, dense,
+audio (both ``transformer``), MoE, SSM (``mamba2``), hybrid (``jamba``)
+and vlm.
 
 Every family module provides::
 
     init(cfg, generator, device) -> params (an nn.Module)
+    forward(cfg, p, batch)        -> full-sequence logits
+                                  (dense, audio and vlm; the MoE, SSM and
+                                  hybrid modules have none yet, ROADMAP A8)
     prefill(cfg, p, batch)        -> (last logits, cache)
     prefill_chunk(cfg, p, tokens, cache, start, qlen)
                                   -> (last live logits, cache)   in place
-                                  (dense only: an MoE, SSM or hybrid
-                                  prompt prefills whole, as in the
-                                  reference)
+                                  (dense only: an MoE, SSM, hybrid or vlm
+                                  prompt prefills whole, and an audio one
+                                  from frames, as in the reference)
     decode(cfg, p, token, pos, cache) -> (logits, cache)   cache in place
     cache_spec(cfg, B, S)         -> {leaf: (shape, dtype)}
     cache_logical_axes(cfg), cache_seq_axes(cfg)
@@ -34,13 +37,15 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import jamba, mamba2, moe, sessions, transformer
+from . import jamba, mamba2, moe, sessions, transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     init: Callable                # (generator, device) -> params
+    forward: Callable             # (params, batch) -> logits (B, S, V);
+                                  # raises for a family without one
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode: Callable              # (params, token (B,1), pos, cache)
                                   # -> (logits (B,1,V), cache): one step,
@@ -61,8 +66,16 @@ class Model:
                                   # for a family without a chunkable prefill
 
 
-_FAMILY = {"dense": transformer, "moe": moe, "ssm": mamba2,
-           "hybrid": jamba}
+_FAMILY = {"dense": transformer, "audio": transformer, "moe": moe,
+           "ssm": mamba2, "hybrid": jamba, "vlm": vlm}
+
+
+def _no_forward(cfg: ModelConfig) -> Callable:
+    def forward(*args, **kwargs):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the full-sequence forward (the training "
+            f"compute) is not ported yet (ROADMAP A8)")
+    return forward
 
 
 def _fused_decode(cfg: ModelConfig, mod) -> Callable:
@@ -85,10 +98,6 @@ def _fused_decode(cfg: ModelConfig, mod) -> Callable:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A3); the port "
-            f"serves {tuple(_FAMILY)}")
     mod = _FAMILY[cfg.family]
     bind = lambda f: (lambda *a, **kw: f(cfg, *a, **kw))
 
@@ -101,11 +110,15 @@ def get_model(cfg: ModelConfig) -> Model:
         return sessions.insert_session(cache, slot, session,
                                        mod.cache_logical_axes(cfg))
 
-    return Model(cfg=cfg, init=bind(mod.init), prefill=bind(mod.prefill),
-                 decode=bind(mod.decode),
+    # the audio family shares the transformer module but prefills from
+    # frames, not token ids, so it keeps the whole-sequence path
+    chunkable = hasattr(mod, "prefill_chunk") and cfg.family != "audio"
+    return Model(cfg=cfg, init=bind(mod.init),
+                 forward=(bind(mod.forward) if hasattr(mod, "forward")
+                          else _no_forward(cfg)),
+                 prefill=bind(mod.prefill), decode=bind(mod.decode),
                  decode_fused=_fused_decode(cfg, mod),
-                 prefill_chunk=(bind(mod.prefill_chunk)
-                                if hasattr(mod, "prefill_chunk") else None),
+                 prefill_chunk=bind(mod.prefill_chunk) if chunkable else None,
                  cache_spec=bind(mod.cache_spec),
                  cache_logical_axes=bind(mod.cache_logical_axes),
                  cache_seq_axes=bind(mod.cache_seq_axes),

@@ -16,9 +16,18 @@ The trees, by family:
 * dense, MoE (``moe_every == 1``), SSM: ``tok``, ``layers`` (every leaf
   stacked on ``L``: ``ln1`` / ``attn`` / ``ln2`` / ``mlp`` or ``moe``, or
   for the SSM ``ln`` / ``ssm``) and ``ln_f``;
+* audio: the dense tree (LayerNorm biases, qkv and MLP biases) and
+  ``head`` (D, vocab);
 * hybrid: ``tok``, ``attn_layers`` stacked on ``(nb,)``, ``mamba_moe`` on
   ``(nb, 4)``, ``mamba_dense`` on ``(nb, 3)`` (``ln1`` / ``ssm`` / ``ln2``
-  / ``moe`` or ``mlp``) and ``ln_f``.
+  / ``moe`` or ``mlp``) and ``ln_f``;
+* vlm: ``tok``, ``self_layers`` stacked on ``(nb, per_self)`` (``ln1`` /
+  ``attn`` / ``ln2`` / ``mlp``), ``cross_layers`` on ``(nb,)`` (``ln1`` /
+  ``xattn`` / ``gate_attn`` / ``ln2`` / ``mlp`` / ``gate_mlp``, the gates
+  scalars) and ``ln_f``.
+
+Layer ``(b, i)`` of a stack on ``(nb, n)`` is the module at ``blocks[b]``,
+position ``i``, and is stacked back in that order.
 
 The port's modules carry the reference's names for their tensors and
 sub-modules, so :func:`params_to_numpy` reads a layer's tree off the
@@ -33,20 +42,14 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
-from . import jamba
+from . import jamba, vlm
 from . import layers as L
 from .mamba2 import SSM, SSMLayer
 from .moe import MoE, MoEBlock, _check_layout
 from .transformer import Block, Transformer
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port converts {_FAMILIES} "
-            f"(ROADMAP A3)")
     if cfg.family == "moe":
         _check_layout(cfg)
 
@@ -58,7 +61,7 @@ def _take(tree: dict, idx) -> dict:
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
-                      ) -> Transformer | jamba.Jamba:
+                      ) -> Transformer | jamba.Jamba | vlm.VLM:
     _check_family(cfg)
     device = resolve_device(device)
 
@@ -99,6 +102,19 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
              for i in range(jamba.N_DENSE)])
             for b in range(cfg.n_layers // cfg.attn_every)]
         return jamba.Jamba(embed, blocks, ln_f)
+    if cfg.family == "vlm":
+        nb, per_self = vlm.layout(cfg)
+
+        def cross_layer(d: dict) -> vlm.CrossBlock:
+            return vlm.CrossBlock(norm(d["ln1"]),
+                                  L.Attention(cfg, ts(d["xattn"])),
+                                  t(d["gate_attn"]), norm(d["ln2"]),
+                                  L.MLP(cfg, ts(d["mlp"])), t(d["gate_mlp"]))
+        blocks = [vlm.SuperBlock(
+            [attn_layer(_take(tree["self_layers"], (b, i)))
+             for i in range(per_self)],
+            cross_layer(_take(tree["cross_layers"], b))) for b in range(nb)]
+        return vlm.VLM(embed, blocks, ln_f)
     lay = tree["layers"]
     if cfg.family == "ssm":
         layers = [SSMLayer(norm(_take(lay["ln"], i)),
@@ -106,7 +122,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
                   for i in range(cfg.n_layers)]
     else:
         layers = [attn_layer(_take(lay, i)) for i in range(cfg.n_layers)]
-    return Transformer(embed, layers, ln_f)
+    return Transformer(embed, layers, ln_f,
+                       t(tree["head"]) if cfg.family == "audio" else None)
 
 
 def _module_tree(m: nn.Module) -> dict:
@@ -124,8 +141,8 @@ def _stacked(trees: list[dict]) -> dict:
             for k, v in trees[0].items()}
 
 
-def params_to_numpy(cfg: ModelConfig, model: Transformer | jamba.Jamba
-                    ) -> dict:
+def params_to_numpy(cfg: ModelConfig,
+                    model: Transformer | jamba.Jamba | vlm.VLM) -> dict:
     """The reference's parameter tree of ``model``, numpy leaves in
     ``cfg.param_dtype``.  Weights the port keeps in a narrower compute
     dtype widen exactly, so ``params_from_numpy`` of the result rebuilds
@@ -145,6 +162,14 @@ def params_to_numpy(cfg: ModelConfig, model: Transformer | jamba.Jamba
             out[name] = _stacked([_stacked([_module_tree(lp) for lp in
                                             getattr(sb, name)])
                                   for sb in model.blocks])
+    elif cfg.family == "vlm":
+        out["self_layers"] = _stacked([_stacked([_module_tree(lp) for lp in
+                                                 sb.self_layers])
+                                       for sb in model.blocks])
+        out["cross_layers"] = _stacked([_module_tree(sb.cross)
+                                        for sb in model.blocks])
     else:
         out["layers"] = _stacked([_module_tree(lp) for lp in model.layers])
+        if cfg.family == "audio":
+            out["head"] = model.head
     return host(out)

@@ -1,5 +1,6 @@
-"""Shared model layers of the port: norms, RoPE, GQA attention, dense MLP,
-embeddings.  Counterpart of ``repro/models/layers.py``, dense pieces only.
+"""Shared model layers of the port: norms, RoPE, GQA self- and
+cross-attention, dense MLP, embeddings.  Counterpart of
+``repro/models/layers.py``.
 
 Parameters are ``nn.Module``s whose tensor names are the keys of the
 reference's parameter dicts (``wq``, ``w_gate``, ``scale``, ...), so a
@@ -17,7 +18,9 @@ Attention: whole-prompt prefill calls the ``flash_attention`` kernel where
 the reference runs its jnp ``blocked_attention`` (or ``_wrapped_causal``);
 both exist only to bound XLA's memory, so neither is ported.  Decode calls
 the ``ragged_decode`` kernel and chunked prefill the ``ragged_prefill``
-kernel, as the reference does.
+kernel, as the reference does.  Cross-attention (the vlm family) takes the
+same two kernels: ``flash_attention`` non-causal over the image tokens at
+prefill, ``ragged_decode`` over the static cross cache at decode.
 """
 
 from __future__ import annotations
@@ -148,22 +151,28 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator,
     return Attention(cfg, t)
 
 
+def _q(cfg: ModelConfig, p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """The query heads of ``x`` (B, S, D) -> (B, S, Hq, hd), before RoPE."""
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(x.shape[0], -1, cfg.n_heads, cfg.hd)
+    return _rms_head(q, p.q_norm) if cfg.qk_norm else q
+
+
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
          kv_src: torch.Tensor, positions, kv_positions, rope: bool):
     B = x.shape[0]
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p.wq
+    hd, Hkv = cfg.hd, cfg.n_kv_heads
+    q = _q(cfg, p, x)
     k = kv_src @ p.wk
     v = kv_src @ p.wv
     if cfg.qkv_bias:
-        q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    q = q.reshape(B, -1, Hq, hd)
     k = k.reshape(B, -1, Hkv, hd)
     v = v.reshape(B, -1, Hkv, hd)
     if cfg.qk_norm:
-        q = _rms_head(q, p.q_norm)
         k = _rms_head(k, p.k_norm)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -281,17 +290,40 @@ def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
     return out @ p.wo
 
 
+def attention_cross_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                           k_cache: torch.Tensor,
+                           v_cache: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention against the static cross cache (B, n_img,
+    Hkv, hd) the prefill wrote: the reference's ``mode="decode"`` with
+    ``kv_src``.  The query takes no RoPE, and every slot reads all
+    ``n_img`` rows: the ``ragged_decode`` kernel with each slot at
+    position ``n_img - 1``.  Nothing is written; no host sync."""
+    x = x.to(torch_dtype(cfg.compute_dtype))
+    B = x.shape[0]
+    pos = torch.full((B,), k_cache.shape[1] - 1, dtype=torch.int32,
+                     device=x.device)
+    out = decode_attention(cfg, _q(cfg, p, x), k_cache, v_cache, pos)
+    return out @ p.wo
+
+
 def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                     positions: torch.Tensor, rope: bool = True,
-                    causal: bool | None = None):
-    """Full-sequence self-attention (the reference's ``mode="full"``
-    without cross-attention).  Returns (out, k, v); k, v are (B, S, Hkv,
-    hd) for the prefill cache."""
+                    causal: bool | None = None,
+                    kv_src: torch.Tensor | None = None):
+    """Full-sequence attention (the reference's ``mode="full"``).  Returns
+    (out, k, v); k, v are (B, Skv, Hkv, hd) for the prefill cache.  With
+    ``kv_src`` (B, n_img, D) it is cross-attention: K and V come from
+    ``kv_src``, neither side takes RoPE, and every query sees every key
+    (``flash_attention`` non-causal, ``Skv = n_img``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = x.to(cdt)
-    causal = cfg.causal if causal is None else causal
+    cross = kv_src is not None
+    causal = (cfg.causal if causal is None else causal) and not cross
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
+    src = kv_src.to(cdt) if cross else x
+    kv_pos = torch.arange(src.shape[1], device=x.device) if cross \
+        else positions
+    q, k, v = _qkv(cfg, p, x, src, positions, kv_pos, rope and not cross)
     # (B, S, H, hd) -> (B, H, S, hd) views; the kernel reads them by stride
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal)

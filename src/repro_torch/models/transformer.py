@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer (qwen2 / qwen2.5 / starcoder2 / smollm):
-the port's counterpart of ``repro/models/transformer.py``.  The MoE family
+"""Dense decoder-only transformer (qwen2 / qwen2.5 / starcoder2 / smollm)
+and encoder-only audio backbone (hubert): the port's counterpart of
+``repro/models/transformer.py``.  The MoE family
 (``models/moe.py``) shares its layer loop and cache layout: each layer
 runs its own feed-forward through ``ffn``.  The hybrid family
 (``models/jamba.py``) runs its attention layers through the same block
@@ -11,7 +12,13 @@ scans stacked layer parameters (``lax.scan``) under ``jax.checkpoint``;
 inference needs no rematerialization.  The decode caches stay one stacked
 ``(L, B, Smax, Hkv, hd)`` tensor per K and V, written in place.
 
-``forward`` (training) is not ported yet (ROADMAP A8).
+The audio family reads precomputed frame embeddings (``batch["frames"]``,
+B, T, D) where the dense one embeds token ids; its attention is
+non-causal (``cfg.causal`` False) and it holds a ``head`` (D, vocab) that
+only ``forward`` applies: ``prefill`` takes ``lm_head`` on the last
+frame, as the reference does.  ``forward`` gives full-sequence logits
+(the reference's training compute, without its rematerialization); the
+training step itself is not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -40,15 +47,19 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters of a model whose layers form one list (dense, MoE,
-    SSM): ``tok`` (embedding and head), ``layers`` (one :class:`Block`,
-    ``moe.MoEBlock`` or ``mamba2.SSMLayer`` per layer) and ``ln_f``."""
+    """The parameters of a model whose layers form one list (dense, audio,
+    MoE, SSM): ``tok`` (embedding and head), ``layers`` (one
+    :class:`Block`, ``moe.MoEBlock`` or ``mamba2.SSMLayer`` per layer),
+    ``ln_f`` and, for audio, ``head`` (D, vocab) in the compute dtype."""
 
-    def __init__(self, tok: L.Embedding, layers: list[Block], ln_f: L.Norm):
+    def __init__(self, tok: L.Embedding, layers: list[Block], ln_f: L.Norm,
+                 head: torch.Tensor | None = None):
         super().__init__()
         self.tok = tok
         self.layers = nn.ModuleList(layers)
         self.ln_f = ln_f
+        self.head = None if head is None else L._weight(
+            head.to(tok.embed.dtype))
 
     @property
     def device(self) -> torch.device:
@@ -74,15 +85,19 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` (which must live on that device).  Not the reference's
     numbers: parity tests carry weights over with
     :func:`repro_torch.models.convert.params_from_numpy`."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only 'dense' is ported (ROADMAP A3)")
+            f"family {cfg.family!r}: this module builds 'dense' and 'audio'")
     device = resolve_device(device)
     tok = L.embedding_init(cfg, generator, device)
     layers = [_layer_init(cfg, generator, device)
               for _ in range(cfg.n_layers)]
+    head = None
+    if cfg.family == "audio":      # classification head over frame vocab
+        head = L.dense_init(generator, cfg.d_model, cfg.vocab,
+                            torch_dtype(cfg.compute_dtype), device)
     return Transformer(tok, layers, L.norm_init(cfg.d_model, cfg.norm,
-                                                device))
+                                                device), head)
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +138,30 @@ def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
 # entry points
 # ---------------------------------------------------------------------------
 
+def _inputs_to_x(cfg: ModelConfig, p: Transformer, batch: dict):
+    if cfg.family == "audio":
+        return batch["frames"].to(torch_dtype(cfg.compute_dtype))
+    return L.embed_tokens(cfg, p.tok, batch["tokens"])
+
+
+def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V): ``lm_head`` for dense,
+    the ``head`` for audio.  No cache is kept."""
+    x = _inputs_to_x(cfg, p, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in p.layers:
+        x, _ = _block_prefill(cfg, lp, x, positions)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    if cfg.family == "audio":
+        return x @ p.head
+    return L.lm_head(cfg, p.tok, x)
+
+
 def prefill(cfg: ModelConfig, p: Transformer, batch: dict):
-    """Forward over whole prompts + KV caches; returns (last-token logits
-    (B, 1, V), cache {"k", "v"}: (L, B, S, Hkv, hd))."""
-    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    """Forward over whole prompts (token ids, or audio frames) + KV caches;
+    returns (last-position logits (B, 1, V), cache {"k", "v"}: (L, B, S,
+    Hkv, hd))."""
+    x = _inputs_to_x(cfg, p, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     ks, vs = [], []
     for lp in p.layers:

@@ -6,6 +6,9 @@ constructor and surface.
   prompt** — prefill runs per request (whole prompt, through the
   ``flash_attention`` kernel on the card) and its KV cache is written into
   the slot's rows of the batch cache (``Model.insert_session``);
+* a request's ``extras`` (the vlm family's ``image_embeds``) go into its
+  prefill batch with a batch axis of 1, on the engine's device; such a
+  request always prefills whole;
 * with ``prefill_chunk_tokens > 0`` a prompt instead prefills in chunks of
   that many tokens through ``Model.prefill_chunk`` (the
   ``ragged_prefill`` kernel on the card), one chunk per ``step`` between
@@ -228,10 +231,6 @@ class ServeEngine:
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.extras:
-            raise NotImplementedError(
-                "prefill extras (the vlm and audio families' inputs) are "
-                "not ported to repro_torch yet (ROADMAP A3)")
         self.queue.append(req)
 
     # -- crash / restart (fault injection surface) -------------------------
@@ -341,7 +340,8 @@ class ServeEngine:
         while slots and self.sessions_in:
             self._install_session(slots.pop(0), self.sessions_in.popleft())
         while self.queue:
-            if self._chunking():
+            # a request with extras (a vlm image) prefills whole
+            if self._chunking() and not self.queue[0].extras:
                 # chunked admission holds no slot: the prompt prefills in
                 # its own cache, one chunk per step, and claims a slot (or
                 # ships) only when done
@@ -359,10 +359,13 @@ class ServeEngine:
             t0 = time.perf_counter()
             req.t_admit = t0
             d = self.scheduler.schedule_prefill(len(req.prompt))
-            tokens = torch.as_tensor(np.asarray(req.prompt),
-                                     device=self.device).long()[None, :]
-            logits, cache = self.model.prefill(self.params,
-                                               {"tokens": tokens})
+            batch = {"tokens": torch.as_tensor(np.asarray(req.prompt),
+                                               device=self.device
+                                               ).long()[None, :]}
+            for name, val in req.extras.items():
+                batch[name] = torch.tensor(np.asarray(val),
+                                           device=self.device)[None]
+            logits, cache = self.model.prefill(self.params, batch)
             # the prefill's ONE host sync; the PTT sample is taken after it
             next_tok = int(torch.argmax(logits[0, -1]))
             prefill_dur = time.perf_counter() - t0

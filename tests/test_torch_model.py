@@ -238,11 +238,16 @@ def test_bf16_session_travels_bit_exact():
     assert torch_dtype(tc.compute_dtype) == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
 def test_non_dense_families_raise_not_implemented(arch):
-    """The families still unported: vlm and audio."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tget_model(tget_config(arch, reduced=True))
+    """The families whose full-sequence ``forward`` (the training compute)
+    is not ported yet: MoE, SSM and hybrid.  They serve; ``forward``
+    raises instead of being silently absent."""
+    tm = tget_model(tget_config(arch, reduced=True))
+    assert tm.prefill is not None and tm.decode_fused is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tm.forward(None, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
 
 
 def test_default_device_is_the_card(monkeypatch):
