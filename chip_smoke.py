@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero before the last line:
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
              chunks crossing, starting at and starting past the cache's
-             end; the matmul on the TAO product and its 16- and 32-row
+             end, and a chunk longer than the cache (T > Smax) from 0 and
+             from a later start; the matmul on the TAO product and its 16- and 32-row
              slices, each timed beside ``torch.matmul`` on the same rows,
              and on unaligned and ragged shapes; the sort at the
              runtime's three row lengths with its kernel launches per
@@ -59,7 +60,30 @@ Phases, in order; any failure exits non-zero before the last line:
              second engine and continue the unmigrated streams token for
              token; payload bytes, codec and the host's encode and decode
              times; a payload with a flipped bit is refused;
-7. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
+7. fleet   — the serve phase's model and prompts behind ``FleetGateway``
+             over three replicas that share its parameters (8 slots,
+             chunks of 4 each): (1) monolithic replicas, 32 new tokens a
+             request and short follow-ups (the router's probe traffic),
+             with a co-tenant (``stream_copy`` over 1 GiB, 3x replica 1's
+             baseline step) enqueued before each of replica 1's steps for
+             a window of pumps: the interference detector must quarantine
+             replica 1 inside the window and readmit it after, and the
+             drain must migrate every live non-probe session off it; then
+             a forced quarantine of the busiest replica of a fresh fleet
+             (migrations = its live sessions); (2) a seeded
+             ``FaultInjector`` crash of replica 2 with heartbeats and a
+             ``LoopbackTransport``: every request done, the crash counters
+             nonzero; (3) one ``role="prefill"`` replica (chunks of 256)
+             handing every session to two ``role="decode"`` replicas over
+             a ``LoopbackTransport``, 16 new tokens a request, with
+             telemetry (spans, metrics, an SLO monitor, a time series)
+             off and on.  Every stream equals its solo stream (chunked in
+             run 3), and each kernel's launches equal what the engines'
+             own counts of prefills, chunks and decode steps (and the
+             co-tenant's launches) give; client TTFT, TPOT, tok/s, wall
+             per pump, drift ratios, the migration pause, the handoff's
+             TTFT breakdown, alerts and peak memory are printed;
+8. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
              32 experts top-8), random weights from the seed: 8 requests
              with prompts of 103-992 tokens and 32 new tokens each, 8
              slots, chunks of 4; every request finishes in vocabulary,
@@ -69,7 +93,7 @@ Phases, in order; any failure exits non-zero before the last line:
              TPOT, TTFT, peak memory, and a profiled decode window (its
              device-busy share, the MoE layers' and expert products'
              device time);
-8. ssm     — mamba2-130m at full width and depth (24 layers, d_model 768,
+9. ssm     — mamba2-130m at full width and depth (24 layers, d_model 768,
              24 SSM heads of 64, state 128, chunk 256), random weights
              from the seed: the MoE phase's 8 prompts and 32 new tokens
              each; every request finishes in vocabulary, no attention
@@ -78,7 +102,7 @@ Phases, in order; any failure exits non-zero before the last line:
              continues the unmigrated stream; tok/s, TPOT, TTFT, peak
              memory, the session's payload and host times, a profiled
              decode window and a 992-token prefill;
-9. hybrid  — jamba-v0.1-52b at full width cut to one superblock (8 of 32
+10. hybrid — jamba-v0.1-52b at full width cut to one superblock (8 of 32
              layers, the most one card holds: 1 attention layer at 32/8
              heads and hd 128 without RoPE, 7 mamba layers, 4 of them with
              16 experts top-2), the same prompts and 16 new tokens each
@@ -88,7 +112,7 @@ Phases, in order; any failure exits non-zero before the last line:
              a profiled decode window split into the attention kernel,
              the MoE routing and dispatch, the expert products, the SSM
              layers and the rest;
-10. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
+11. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
              (10 of 100 layers: 8 self layers and 2 gated cross layers at
              64/8 heads, hd 128, 1601 image tokens), the cross gates set
              nonzero, the same prompts, each with its own seeded image
@@ -100,7 +124,7 @@ Phases, in order; any failure exits non-zero before the last line:
              memory, the weight bytes a step reads and their bound, and a
              profiled decode window split into the self-attention kernel,
              the cross-attention kernel and the rest;
-11. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
+12. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
              heads of 80, 945 M parameters): ``Model.forward`` over 8
              seeded clips of 1000 frames, warmed then timed; logits
              (8, 1000, 504) finite, 48 flash launches a forward, clip 0
@@ -108,11 +132,11 @@ Phases, in order; any failure exits non-zero before the last line:
              ``Model.prefill``; frames/s, ms a forward, the device-busy
              share, the share of the bf16 peak from the shapes' operations,
              peak memory;
-12. checkpoint — the MoE model's parameters cut to 2 layers, written by
+13. checkpoint — the MoE model's parameters cut to 2 layers, written by
              ``params_to_numpy`` + ``save_checkpoint`` and read back by
              ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
              prompt's logits bit-identical; seconds and bytes;
-13. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+14. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -724,7 +748,8 @@ def phase_kernels(torch, seed, peaks):
     # chunk of a 2048-token prompt, four serving chunks at once (B=4), a
     # first chunk with a ragged tail, mixed slots (one empty, one ending at
     # the cache edge), rep 16 and hd 128 over B=8 mixed starts, the same
-    # at T=77 (a tile's tokens and the cache not multiples), and float32
+    # at T=77 (a tile's tokens and the cache not multiples), past the
+    # cache, a chunk longer than the cache, and float32
     rp_cases = [ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     2048, [768], [256], 2e-2, True),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
@@ -757,11 +782,20 @@ def phase_kernels(torch, seed, peaks):
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
                                     2048, [2048 - 20, 2048, 2100, 2000],
                                     [64, 64, 30, 60], 2e-2, False, T=64),
+                # a chunk longer than the cache (T > Smax: the engine's
+                # chunk of 256 over a 200-row cache), from 0 and from a
+                # start past 0 beside a slot from 0
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    200, [0], [256], 2e-2, False),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, bf16,
+                                    200, [60, 0], [256, 230], 2e-2, False),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     1000, [980, 1000], [64, 64], 1e-4, False,
                                     T=64),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
-                                    1000, [300, 0], [256, 5], 1e-4, False)]
+                                    1000, [300, 0], [256, 5], 1e-4, False),
+                ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
+                                    100, [30], [128], 1e-4, False, T=128)]
     paper = phase_paper_kernels(torch, gen, peaks, flush)
     del flush
     # the line's numbers: the first case of each, the serving path's shape
@@ -770,7 +804,7 @@ def phase_kernels(torch, seed, peaks):
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fa_cases[:-1])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in rp_cases[:-2]))}
+                c["max_abs_err"] for c in rp_cases[:-3]))}
 
 
 # ---------------------------------------------------------------------------
@@ -1180,7 +1214,464 @@ def phase_wire(torch, card, model, params, reqs):
 
 
 # ---------------------------------------------------------------------------
-# 7. the MoE family (and the serving run the SSM and hybrid phases share)
+# 7. the fleet tier
+# ---------------------------------------------------------------------------
+
+FLEET_NEW = 32               # new tokens a request in runs 1 and 2
+FLEET_WINDOW = (5, 13)       # pumps [start, end) of the co-tenant on r1:
+                             # from the first pump at which the detector
+                             # judges (4 samples), while the 32-token
+                             # requests are still live
+COTENANT_FACTOR = 3.0        # co-tenant time / r1's baseline step time
+COTENANT_BYTES = 2**30       # one stream_copy of the co-tenant
+FOLLOWUP = (8, 24)           # follow-ups: prompt tokens, new tokens (more
+                             # new than prompt: the DECODE class, the
+                             # router's probe traffic)
+FOLLOWUP_FROM = 6            # first pump after which a follow-up arrives:
+                             # none earlier, since a prefill on r1 in the
+                             # window's first two steps would absorb the
+                             # co-tenant at its own sync, before the
+                             # decode the detector times
+FLEET_MAX_PUMPS = 90
+CRASH_AT = 3                 # run 2: replica 2 dies at pump 3,
+CRASH_RESTART = 9            # restarts at pump 9
+
+
+def _fleet_counts(rd, fa, rp, sc, zero=False):
+    if zero:
+        rd.launches = fa.launches = rp.launches = 0
+        sc.copy_launches = 0
+    return {"ragged_decode": rd.launches, "flash_attention": fa.launches,
+            "ragged_prefill": rp.launches, "stream_copy": sc.copy_launches}
+
+
+def _fleet_expected(gw, layers, chunk_replicas=(), cotenant=0):
+    """The launches the engines' own counts imply: every decode step (one
+    detector sample each) runs 4 tokens x ``layers`` ragged decodes; every
+    PTT update of a whole-prompt engine that is not a decode step is a
+    prefill (``layers`` flash launches); a chunking engine's updates that
+    are not decode steps are chunks (``layers`` ragged prefills)."""
+    det = gw.router.detector
+    exp = {"ragged_decode": 0, "flash_attention": 0, "ragged_prefill": 0,
+           "stream_copy": cotenant}
+    for r, e in enumerate(gw.engines):
+        steps = int(det.samples[r])
+        other = e.scheduler.ptt.updates - steps
+        exp["ragged_decode"] += steps * e.decode_chunk * layers
+        exp["ragged_prefill" if r in chunk_replicas
+            else "flash_attention"] += other * layers
+    return exp
+
+
+def _hook_steps(gw):
+    """Chain a per-replica list of decode step latencies (per token) onto
+    the hooks the gateway installed."""
+    lat = [[] for _ in gw.engines]
+    for r, e in enumerate(gw.engines):
+        def hook(dt, _r=r, _h=e.on_step_latency):
+            lat[_r].append(dt)
+            _h(dt)
+        e.on_step_latency = hook
+    return lat
+
+
+def _time_drains(gw):
+    """(seconds, sessions) of every drain pass that moved sessions: the
+    export of each from its source and the import into its new home."""
+    pauses = []
+    orig = gw._migrate_quarantined
+
+    def timed():
+        t0 = time.perf_counter()
+        n = orig()
+        if n:
+            pauses.append((time.perf_counter() - t0, n))
+        return n
+    gw._migrate_quarantined = timed
+    return pauses
+
+
+def _fleet_report(tag, np, gw, routed, lat, pumps, wall, tokens, card):
+    st = gw.stats()
+    ttft = np.asarray(sorted(gw.ttfts().values()))
+    flat = np.asarray([x for r in lat for x in r])
+    print(f"[fleet] {tag}: routed per replica {routed}, served per replica "
+          f"(credit follows migrations) {st['per_replica']}")
+    print(f"[fleet] {tag}: client TTFT (arrival -> first token, queue wait "
+          f"included) p50 {1e3 * np.percentile(ttft, 50):.3f} ms, p99 "
+          f"{1e3 * np.percentile(ttft, 99):.3f} ms over {len(ttft)}; TPOT "
+          f"p50 {1e3 * np.median(flat):.3f} ms over {len(flat)} decode "
+          f"steps; {tokens / wall:.1f} tok/s fleet-wide ({tokens} tokens "
+          f"in {wall:.3f} s); wall per pump mean "
+          f"{1e3 * wall / len(pumps):.3f} ms, p50 "
+          f"{1e3 * np.median(pumps):.3f} ms over {len(pumps)} pumps ({card})")
+
+
+def _fleet_check_launches(tag, got, exp):
+    for k, v in exp.items():
+        check(got[k] == v, f"fleet {tag}: {k} launched {got[k]} times, the "
+                           f"engines' counts give {v}")
+    print(f"[fleet] {tag}: launches {got} (exact)")
+
+
+def _drive(gw, reqs, followups, on_pump, max_pumps):
+    """Submit ``reqs``, then pump until every request is done, submitting
+    one follow-up after each pump from ``FOLLOWUP_FROM`` on while
+    ``followups`` yields; ``on_pump(k)`` runs after pump k.  Returns the
+    routed-per-replica counts, every pump's wall time, the run's, and the
+    requests sent."""
+    routed = [0] * len(gw.engines)
+
+    def submit(r):
+        d = gw.submit(r)
+        if d.replica is not None:
+            routed[d.replica] += 1
+    for r in reqs:
+        submit(r)
+    pumps, sent = [], list(reqs)
+    t0 = time.perf_counter()
+    for k in range(1, max_pumps + 1):
+        tp = time.perf_counter()
+        gw.pump()
+        pumps.append(time.perf_counter() - tp)
+        on_pump(k)
+        nxt = next(followups, None) if k >= FOLLOWUP_FROM else None
+        if nxt is not None:
+            submit(nxt)
+            sent.append(nxt)
+        if (nxt is None and all(gw.handle(r.rid).done for r in sent)
+                and not gw.held):
+            break
+    wall = time.perf_counter() - t0
+    check(all(gw.handle(r.rid).done for r in sent),
+          f"not every request finished in {max_pumps} pumps")
+    return routed, pumps, wall, sent
+
+
+def phase_fleet(torch, card, model, params, reqs):
+    """qwen2-0.5b at full width behind ``FleetGateway`` (three replicas
+    sharing one parameter set): (1) monolithic replicas with a co-tenant
+    (``stream_copy`` over a large buffer) on replica 1 for a window of
+    pumps, which the interference detector must quarantine and readmit,
+    and a forced quarantine of the busiest replica; (2) a seeded crash of
+    replica 2 with heartbeat detection and recovery; (3) one prefill-role
+    replica (chunks of 256) handing every session to two decode-role
+    replicas over a ``LoopbackTransport``, with telemetry off and on.
+    Every stream must equal the request's solo stream, and every kernel's
+    launches the engines' own counts."""
+    import numpy as np
+    from repro_torch.chaos import FaultInjector
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.kernels.stream_copy import ops as sc
+    from repro_torch.obs import (MetricRegistry, Objective, SLOMonitor,
+                                 SpanTracer, TimeSeriesStore)
+    from repro_torch.region import LoopbackTransport
+    from repro_torch.router import FleetGateway
+    from repro_torch.serve import Request, ServeEngine
+
+    L = model.cfg.n_layers
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {"ragged_decode": 0, "flash_attention": 0,
+                "ragged_prefill": 0, "stream_copy": 0}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    def engines(n=3, **kw):
+        return [ServeEngine(model, params, max_batch=8, max_seq=2048,
+                            decode_chunk=4, **kw) for _ in range(n)]
+
+    def clones(new):
+        return [Request(rid=r.rid, prompt=r.prompt, max_new=new)
+                for r in reqs]
+
+    rng = np.random.default_rng(1234)
+    fu_prompts = [rng.integers(0, model.cfg.vocab, FOLLOWUP[0])
+                  for _ in range(FLEET_MAX_PUMPS)]
+
+    def followups():
+        for i, p in enumerate(fu_prompts):
+            yield Request(rid=100 + i, prompt=p, max_new=FOLLOWUP[1])
+
+    # the co-tenant: stream_copy of 1 GiB, timed alone here
+    src = torch.empty(COTENANT_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    for _ in range(3):
+        sc.stream_copy(src, out=dst)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(10):
+        sc.stream_copy(src, out=dst)
+    e1.record()
+    e1.synchronize()
+    t_copy = e0.elapsed_time(e1) / 10 / 1e3
+    print(f"[fleet] co-tenant: stream_copy of {COTENANT_BYTES} bytes takes "
+          f"{1e3 * t_copy:.3f} ms ({card})")
+
+    # -- run 1: monolithic, a co-tenant on replica 1 -----------------------
+    gw = FleetGateway(engines())
+    lat = _hook_steps(gw)
+    pauses = _time_drains(gw)
+    e1_step = gw.engines[1].step
+    cot = {"launches": 0, "per_step": 0, "pumps": []}
+
+    def r1_step():
+        if FLEET_WINDOW[0] <= gw._pump_count < FLEET_WINDOW[1]:
+            if not cot["per_step"]:
+                # r1's baseline decode step (4 tokens) before the window
+                base = 4 * float(np.median(lat[1]))
+                cot["base"] = base
+                cot["per_step"] = math.ceil(COTENANT_FACTOR * base / t_copy)
+            for _ in range(cot["per_step"]):
+                sc.stream_copy(src, out=dst)
+            cot["launches"] += cot["per_step"]
+            cot["pumps"].append(gw._pump_count)
+            n = e1_step()
+            # an idle step syncs nothing: wait here, so that the co-tenant
+            # lands on replica 1 and not on the next replica's step
+            torch.cuda.current_stream().synchronize()
+            return n
+        return e1_step()
+    gw.engines[1].step = r1_step
+    det = gw.router.detector
+    flips = {"q": None, "r": None, "n_live": None, "moved": None,
+             "drift": []}
+
+    def on_pump(k):
+        flips["drift"].append(det.drift(1))
+        if flips["q"] is not None and flips["moved"] is None:
+            flips["moved"] = gw.stats()["migrations"]
+            probes = {t.req.rid for t in gw.tracked if t.probe}
+            check(all(r is None or r.rid in probes
+                      for r in gw.engines[1].active),
+                  "a non-probe session is still live on replica 1")
+        if flips["q"] is None and 1 in det.quarantined:
+            flips["q"] = k
+            flips["n_live"] = sum(
+                1 for t in gw.tracked if t.replica == 1 and not t.probe
+                and gw.engines[1].active_pos(t.req.rid) is not None)
+        if flips["q"] is not None and flips["r"] is None \
+                and 1 not in det.quarantined:
+            flips["r"] = k
+
+    fus = followups()
+    run1 = clones(FLEET_NEW)
+
+    def until_readmitted():
+        for r in fus:
+            if flips["r"] is not None:
+                return
+            yield r
+    _fleet_counts(rd, fa, rp, sc, zero=True)
+    routed, pumps, wall, sent = _drive(gw, run1, until_readmitted(),
+                                       on_pump, FLEET_MAX_PUMPS)
+    got = _fleet_counts(rd, fa, rp, sc)
+    _fleet_check_launches("run 1", got, _fleet_expected(
+        gw, L, cotenant=cot["launches"]))
+    add(got)
+    check(flips["q"] is not None
+          and FLEET_WINDOW[0] <= flips["q"] < FLEET_WINDOW[1],
+          f"replica 1 quarantined at pump {flips['q']}, not inside the "
+          f"co-tenant's window {FLEET_WINDOW}")
+    check(flips["r"] is not None and flips["r"] >= FLEET_WINDOW[1],
+          f"replica 1 readmitted at pump {flips['r']}, not after the "
+          f"window {FLEET_WINDOW}")
+    check(flips["moved"] == flips["n_live"] and flips["n_live"] > 0,
+          f"the drain moved {flips['moved']} sessions, replica 1 held "
+          f"{flips['n_live']} live non-probe sessions")
+    check(gw.router.fleet.updates > 16, "FleetPTT updates <= 16")
+    check(det.samples.sum() > 0, "the detector saw no sample")
+    check(gw.stats()["requests_served"] == len(sent), "served count")
+    tokens = sum(len(r.out_tokens) for r in sent)
+    _fleet_report("run 1 (monolithic, co-tenant on r1)", np, gw, routed,
+                  lat, pumps, wall, tokens, card)
+    print(f"[fleet] run 1: co-tenant {cot['per_step']} stream_copy launches "
+          f"before each of r1's steps in pumps {cot['pumps'][0]}-"
+          f"{cot['pumps'][-1]} ({COTENANT_FACTOR}x r1's baseline step of "
+          f"{1e3 * cot['base']:.3f} ms), {cot['launches']} in all; "
+          f"quarantined at pump {flips['q']}, readmitted at pump "
+          f"{flips['r']}; r1's drift ratio at quarantine "
+          f"{flips['drift'][flips['q'] - 1]:.3f}, max "
+          f"{max(flips['drift']):.3f}; events {list(det.events)}")
+    adm = {k: sum(v.values()) for k, v in gw.stats()["admission"].items()}
+    print(f"[fleet] run 1: the drain at pump {flips['q'] + 1} moved "
+          f"{flips['n_live']} live sessions off r1; {len(sent) - len(run1)} "
+          f"follow-ups ({FOLLOWUP[0]} prompt tokens, {FOLLOWUP[1]} new); "
+          f"admission {adm}")
+    pause = sum(s for s, _ in pauses) / sum(n for _, n in pauses)
+    print(f"[fleet] run 1: drains (ms, sessions) "
+          f"{[(round(1e3 * s, 3), n) for s, n in pauses]}: the migration "
+          f"pause {1e3 * pause:.3f} ms a session ({card})")
+    del src, dst
+    solo = {}
+
+    def solo_of(r):
+        key = (r.rid, r.max_new)
+        if key not in solo:
+            solo[key], _ = _solo_stream(torch, np, model, params, r.prompt,
+                                        r.max_new, None)
+        return solo[key]
+    for r in sent:
+        check(list(gw.handle(r.rid).out_tokens) == solo_of(r),
+              f"fleet run 1: request {r.rid}'s stream differs from its "
+              f"solo stream")
+    print(f"[fleet] run 1: {len(sent)} streams identical to their solo "
+          f"streams")
+
+    # -- run 1b: a forced quarantine of the busiest replica ----------------
+    gw = FleetGateway(engines())
+    lat = _hook_steps(gw)
+    pauses = _time_drains(gw)
+    run1b = clones(FLEET_NEW)
+    _fleet_counts(rd, fa, rp, sc, zero=True)
+    for r in run1b:
+        gw.submit(r)
+    for _ in range(3):
+        gw.pump()
+    victim = max(range(3), key=lambda i: gw.engines[i].active_count())
+    n_live = gw.engines[victim].active_count()
+    check(n_live > 0, "no live session to drain")
+    gw.router.detector.force_quarantine(victim)
+    gw.pump()
+    check(gw.engines[victim].active_count() == 0,
+          f"replica {victim} still holds sessions after the drain")
+    check(gw.stats()["migrations"] == n_live,
+          f"{gw.stats()['migrations']} migrations != {n_live} live "
+          f"sessions of replica {victim}")
+    gw.run_until_drained(FLEET_MAX_PUMPS)
+    got = _fleet_counts(rd, fa, rp, sc)
+    _fleet_check_launches("run 1b", got, _fleet_expected(gw, L))
+    add(got)
+    for r in run1b:
+        check(r.done and list(r.out_tokens) == solo_of(r),
+              f"fleet run 1b: request {r.rid}'s stream differs from its "
+              f"solo stream")
+    s, n = pauses[0]
+    print(f"[fleet] run 1b: force_quarantine({victim}) moved {n_live} live "
+          f"sessions in {1e3 * s:.3f} ms ({1e3 * s / n:.3f} ms a session, "
+          f"{card}); {len(run1b)} streams identical to their solo streams")
+
+    # -- run 2: a seeded crash of replica 2 --------------------------------
+    inj = FaultInjector(0).crash(2, at_step=CRASH_AT,
+                                 restart_at=CRASH_RESTART)
+    gw = FleetGateway(engines(), transport=LoopbackTransport(),
+                      injector=inj, heartbeat_timeout=2)
+    lat = _hook_steps(gw)
+    run2 = clones(FLEET_NEW)
+    _fleet_counts(rd, fa, rp, sc, zero=True)
+    routed, pumps, wall, sent = _drive(gw, run2, iter(()),
+                                       lambda k: None, FLEET_MAX_PUMPS)
+    got = _fleet_counts(rd, fa, rp, sc)
+    _fleet_check_launches("run 2", got, _fleet_expected(gw, L))
+    add(got)
+    st = gw.stats()
+    crash = {k: st[k] for k in ("crashes_detected",
+                                "crash_sessions_recovered",
+                                "crash_requests_resubmitted")}
+    check(st["crashes_detected"] == 1, f"crash counters {crash}")
+    check(st["crash_sessions_recovered"]
+          + st["crash_requests_resubmitted"] > 0,
+          f"nothing recovered after the crash: {crash}")
+    for r in run2:
+        check(list(gw.handle(r.rid).out_tokens) == solo_of(r),
+              f"fleet run 2: request {r.rid}'s stream differs from its "
+              f"solo stream")
+    tokens = sum(len(gw.handle(r.rid).out_tokens) for r in run2)
+    _fleet_report("run 2 (crash of r2)", np, gw, routed, lat, pumps, wall,
+                  tokens, card)
+    print(f"[fleet] run 2: replica 2 crashed at pump {CRASH_AT}, restarted "
+          f"at pump {CRASH_RESTART}; counters {crash}; quarantined "
+          f"{st['quarantined']}; {len(run2)} streams (through "
+          f"gw.handle) identical to their solo streams")
+
+    # -- run 3: prefill -> decode handoff, telemetry off and on ------------
+    chunked, per_pump = {}, {}
+    # a warm-up fleet, not reported: the first disaggregated fleet pays the
+    # allocator's growth and first calls, which would otherwise land on
+    # whichever of the two runs below came first
+    gw = FleetGateway(
+        engines(1, role="prefill", prefill_chunk_tokens=CHUNK)
+        + engines(2, role="decode"), transport=LoopbackTransport())
+    gw.attach_obs(SpanTracer("warm-up"), MetricRegistry(), name="warm-up")
+    for r in clones(CHUNK_NEW)[:2]:
+        gw.submit(r)
+    gw.run_until_drained(400)
+    for telemetry in (False, True):
+        gw = FleetGateway(
+            engines(1, role="prefill", prefill_chunk_tokens=CHUNK)
+            + engines(2, role="decode"), transport=LoopbackTransport())
+        if telemetry:
+            reg, tr = MetricRegistry(), SpanTracer("fleet")
+            gw.attach_obs(tr, reg, name="fleet")
+            mon = SLOMonitor([Objective("ttft", target=0.9, threshold=1.0),
+                              Objective("tpot", target=0.9, threshold=0.05),
+                              Objective("availability", target=0.99)],
+                             fast_window=4, slow_window=16)
+            gw.attach_slo(mon)
+            store = TimeSeriesStore(reg)
+            gw.attach_timeseries(store)
+        lat = _hook_steps(gw)
+        run3 = clones(CHUNK_NEW)
+        _fleet_counts(rd, fa, rp, sc, zero=True)
+        routed, pumps, wall, sent = _drive(gw, run3, iter(()),
+                                           lambda k: None, 400)
+        got = _fleet_counts(rd, fa, rp, sc)
+        tag = ("run 3 (disaggregated, telemetry "
+               f"{'on' if telemetry else 'off'})")
+        _fleet_check_launches(tag, got, _fleet_expected(gw, L, (0,)))
+        add(got)
+        n_chunks = sum(-(-len(r.prompt) // CHUNK) for r in run3)
+        check(got["ragged_prefill"] == n_chunks * L
+              and got["flash_attention"] == 0,
+              f"{tag}: {n_chunks} chunks x {L} layers expected")
+        st = gw.stats()
+        check(st["prefill_handoffs"] == len(run3),
+              f"{tag}: {st['prefill_handoffs']} handoffs != {len(run3)}")
+        for r in run3:
+            if r.rid not in chunked:
+                chunked[r.rid] = _chunked_solo(model, params, r.prompt, None)
+            check(r.done and list(r.out_tokens) == chunked[r.rid],
+                  f"{tag}: request {r.rid}'s stream differs from its "
+                  f"chunked solo stream")
+        tokens = sum(len(r.out_tokens) for r in run3)
+        _fleet_report(tag, np, gw, routed, lat, pumps, wall, tokens, card)
+        bd = gw.ttft_breakdown().values()
+        p50 = {k: 1e3 * float(np.median([b[k] for b in bd]))
+               for k in ("prefill_s", "ship_s", "first_decode_s")}
+        print(f"[fleet] {tag}: {len(run3)} handoffs, TTFT breakdown p50 "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in p50.items())
+              + f", payload p50 {int(np.median([b['nbytes'] for b in bd]))} "
+              f"bytes; {len(run3)} streams identical to their chunked solo "
+              f"streams ({card})")
+        if telemetry:
+            print(f"[fleet] {tag}: SLO alerts "
+                  f"{[(a.objective, a.state, a.tick) for a in mon.alerts]}, "
+                  f"Prometheus text {len(reg.prometheus_text())} bytes, "
+                  f"{len(tr.events)} trace events, {store.samples} "
+                  f"time-series samples")
+        # the handoffs' wire encode is most of the pump's wall and varies
+        # with the host; the pump's time outside it is the steadier reading
+        ship = sum(b["ship_s"] for b in bd)
+        per_pump[telemetry] = (1e3 * wall / len(pumps),
+                               1e3 * (wall - ship) / len(pumps))
+    (off, off_x), (on, on_x) = per_pump[False], per_pump[True]
+    print(f"[fleet] run 3: wall per pump {off:.3f} ms with the telemetry "
+          f"off, {on:.3f} ms on ({on - off:+.3f} ms); outside the "
+          f"handoffs' ship time {off_x:.3f} ms off, {on_x:.3f} ms on "
+          f"({on_x - off_x:+.3f} ms, {card})")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[fleet] peak device memory {peak} bytes; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. the MoE family (and the serving run the SSM and hybrid phases share)
 # ---------------------------------------------------------------------------
 
 MOE_NEW = 32
@@ -1378,7 +1869,7 @@ def phase_moe(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 8. the SSM family
+# 9. the SSM family
 # ---------------------------------------------------------------------------
 
 SSM_NEW = 32
@@ -1429,7 +1920,7 @@ def phase_ssm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 9. the hybrid family
+# 10. the hybrid family
 # ---------------------------------------------------------------------------
 
 HYBRID_LAYERS = 8            # one superblock: what one card's memory holds
@@ -1513,7 +2004,7 @@ def phase_hybrid(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 10. the vlm family
+# 11. the vlm family
 # ---------------------------------------------------------------------------
 
 VLM_LAYERS = 10              # two superblocks: the stacked nb axis is checked
@@ -1629,7 +2120,7 @@ def phase_vlm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 11. the audio family
+# 12. the audio family
 # ---------------------------------------------------------------------------
 
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000     # 20 s of audio each at 50 Hz
@@ -1742,7 +2233,7 @@ def phase_audio(torch, seed, card):
 
 
 # ---------------------------------------------------------------------------
-# 12. checkpoints
+# 13. checkpoints
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS = 2
@@ -1803,7 +2294,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 13. the paper's threaded runtime
+# 14. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -2100,6 +2591,7 @@ def main() -> int:
         chunked = phase_chunked(torch, card, model, params, reqs)
         launches["ragged_prefill"] = chunked["ragged_prefill"]
         phase_wire(torch, card, model, params, reqs)
+        fleet = phase_fleet(torch, card, model, params, reqs)
         del model, params
         # every serving path's launches: each phase's run counts from 0
         for path in (phase_moe(torch, args.seed, card, reqs),
@@ -2112,6 +2604,8 @@ def main() -> int:
         del reqs
         phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))
+        for kernel, n in fleet.items():
+            launches[kernel] += n
         launches["stream_scale_add"] = scale_add_launches
         kernels = kernel_line(stats, launches)
     except SmokeFailure as e:

@@ -16,8 +16,10 @@ metric strings ``"occupancy"`` / ``"latency"``, which map to the
 :class:`~repro.core.tracetable.Occupancy` and
 :class:`~repro.core.tracetable.Latency` models.
 
-This is the PyTorch port's copy of ``repro.core.ptt`` (numpy only); the
-reference's re-exported jnp functional ops are not carried over yet.
+The functional ops (:func:`ptt_update`, :func:`ptt_global_search`,
+:func:`ptt_local_search`, on torch tensors) are re-exported from
+:mod:`repro_torch.core.tracetable` for the pod-scale elastic runtime.
+This is the PyTorch port's copy of ``repro.core.ptt``.
 """
 
 from __future__ import annotations
@@ -28,9 +30,14 @@ import numpy as np
 
 from .places import ClusterLayout, Place
 from .tracetable import (EMA_DEN, EMA_OLD, Candidate, CostModel,
-                         EMASearchMixin, Latency, Occupancy, TraceTable)
+                         EMASearchMixin, Latency, Occupancy, TraceTable,
+                         make_ptt_array, ptt_global_search, ptt_local_search,
+                         ptt_update)
 
-__all__ = ["EMA_DEN", "EMA_OLD", "EMASearchMixin", "PTT", "PTTConfig"]
+__all__ = [
+    "EMA_DEN", "EMA_OLD", "EMASearchMixin", "PTT", "PTTConfig",
+    "make_ptt_array", "ptt_global_search", "ptt_local_search", "ptt_update",
+]
 
 # legacy string metrics -> first-class cost models
 _METRICS = {"occupancy": Occupancy(), "latency": Latency()}

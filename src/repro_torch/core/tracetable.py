@@ -48,9 +48,12 @@ Paper concept -> API surface:
   bootstrap guarantee: every valid configuration is visited, and probe
   traffic keeps quarantined rows training.
 
-This is the PyTorch port's copy of ``repro.core.tracetable``: numpy only.
-The reference's jnp functional ops (``ptt_update``, ``ptt_global_search``,
-``ptt_local_search``) are not carried over yet.
+This is the PyTorch port's copy of ``repro.core.tracetable``.  The
+functional ops (:func:`make_ptt_array`, :func:`ptt_update`,
+:func:`ptt_global_search`, :func:`ptt_local_search`) are the same math on
+torch tensors, for the pod-scale elastic runtime (homogeneous groups,
+power-of-two widths): an update returns a new tensor, and an argmin takes
+the first minimum, as the reference's jnp ops do.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from collections.abc import Mapping
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
+import torch
 
 # EMA weight from the paper: old:new = 4:1.
 EMA_OLD = 4.0
@@ -561,3 +565,56 @@ class TraceTable(EMASearchMixin):
                     for s in scored),
                 context=capture_context(ctx, scored)))
         return picked
+
+
+# ---------------------------------------------------------------------------
+# Functional PTT on torch tensors — same math; homogeneous device groups
+# with power-of-two widths (the pod-scale case).
+# ---------------------------------------------------------------------------
+
+def make_ptt_array(num_task_types: int, num_cores: int,
+                   widths: Sequence[int]) -> torch.Tensor:
+    return torch.zeros((num_task_types, num_cores, len(widths)),
+                       dtype=torch.float32)
+
+
+def _valid_mask(num_cores: int, widths: tuple[int, ...]) -> torch.Tensor:
+    cores = np.arange(num_cores)[:, None]
+    ws = np.array(widths)[None, :]
+    return torch.from_numpy((cores % ws) == 0)        # (C, W) bool
+
+
+def ptt_update(table: torch.Tensor, task_type, leader, width_idx,
+               elapsed) -> torch.Tensor:
+    """Functional EMA update (leader-core rule is the caller's contract):
+    returns a new table; ``table`` is left as it was."""
+    old = table[task_type, leader, width_idx]
+    new = torch.where(old == 0.0, elapsed, (EMA_OLD * old + elapsed) / EMA_DEN)
+    out = table.clone()
+    out[task_type, leader, width_idx] = new
+    return out
+
+
+def ptt_global_search(table: torch.Tensor, task_type,
+                      widths: tuple[int, ...]):
+    """argmin_{leader,width} time*width with leader-validity mask.
+    Returns (leader, width_idx)."""
+    tab = table[task_type]                              # (C, W)
+    w = torch.tensor(widths, dtype=tab.dtype, device=tab.device)[None, :]
+    cost = torch.where(_valid_mask(tab.shape[0], widths).to(tab.device),
+                       tab * w, torch.inf)
+    flat = torch.argmin(cost.reshape(-1))
+    return flat // len(widths), flat % len(widths)
+
+
+def ptt_local_search(table: torch.Tensor, task_type, core,
+                     widths: tuple[int, ...]):
+    """Best width_idx among the partitions containing ``core``."""
+    ws = torch.tensor(widths, dtype=torch.int64, device=table.device)
+    leaders = torch.div(torch.as_tensor(core, device=table.device), ws,
+                        rounding_mode="floor") * ws        # (W,)
+    vals = table[task_type, leaders,
+                 torch.arange(len(widths), device=table.device)]
+    cost = vals * torch.tensor(widths, dtype=table.dtype,
+                               device=table.device)
+    return torch.argmin(cost)

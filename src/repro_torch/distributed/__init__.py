@@ -1,3 +1,3 @@
-from .elastic import PodPTT
+from .elastic import HeartbeatMonitor, PodPTT, StragglerRebalancer
 
-__all__ = ["PodPTT"]
+__all__ = ["HeartbeatMonitor", "PodPTT", "StragglerRebalancer"]

@@ -1,7 +1,16 @@
 """PTT-driven elasticity at pod scale: the port's copy of
-``repro.distributed.elastic``, so far only :class:`PodPTT`, which the
-serving scheduler searches.  ``StragglerRebalancer``, ``HeartbeatMonitor``
-and ``elastic_remesh`` are not carried over yet."""
+``repro.distributed.elastic``.
+
+* :class:`PodPTT` — a Performance Trace Table whose "cores" are device
+  groups; the serving scheduler searches it.
+* :class:`StragglerRebalancer` — the paper's interference response
+  (Fig. 8) applied to synchronous data parallelism: per-group step
+  latencies shift the microbatch allocation toward fast groups.
+* :class:`HeartbeatMonitor` — a group silent for ``timeout`` is declared
+  dead; the fleet gateway runs one on its pump clock.
+
+``RooflineLatencyModel`` (read from the JAX package's dry-run artifacts)
+and ``elastic_remesh`` (JAX shardings) are not carried over yet."""
 
 from __future__ import annotations
 
@@ -9,7 +18,7 @@ import numpy as np
 
 from ..core.places import homogeneous_layout
 from ..core.ptt import PTT, PTTConfig
-from ..core.tracetable import CostModel
+from ..core.tracetable import CostModel, EMASearchMixin, TraceTable
 
 
 class PodPTT(PTT):
@@ -37,3 +46,97 @@ class PodPTT(PTT):
 
     def width_local(self, task_type: int, group: int):
         return self.local_search(task_type, group)
+
+
+# ---------------------------------------------------------------------------
+# straggler-aware data parallelism
+# ---------------------------------------------------------------------------
+
+class StragglerRebalancer(EMASearchMixin):
+    """EMA-1:4 per-group step times -> proportional microbatch allocation.
+
+    With per-group time t_i for one microbatch, assigning n_i ~ 1/t_i
+    equalizes finish times; the allocation is recomputed only when the
+    predicted makespan improves by `hysteresis` (avoids thrashing on noise,
+    like the paper's EMA damping)."""
+
+    def __init__(self, n_groups: int, total_microbatches: int,
+                 hysteresis: float = 0.05):
+        self.n = n_groups
+        self.total = total_microbatches
+        self.hysteresis = hysteresis
+        # per-group EMA'd per-microbatch time; 0 = untrained
+        self.trace = TraceTable((n_groups,), metrics=("mb_time",))
+        self.alloc = self._even()
+
+    @property
+    def t_ema(self) -> np.ndarray:
+        return self.trace.array()
+
+    def _even(self) -> np.ndarray:
+        base = self.total // self.n
+        alloc = np.full(self.n, base)
+        alloc[: self.total - base * self.n] += 1
+        return alloc
+
+    def observe(self, group_times: np.ndarray) -> None:
+        """group_times: wall time of each group's current allocation."""
+        self.trace.merge_array(group_times / np.maximum(self.alloc, 1))
+
+    def makespan(self, alloc: np.ndarray) -> float:
+        return float(np.max(alloc * self.t_ema))
+
+    def rebalance(self) -> np.ndarray:
+        if np.any(self.t_ema == 0):
+            return self.alloc
+        speed = 1.0 / self.t_ema
+        ideal = speed / speed.sum() * self.total
+        alloc = np.maximum(1, np.floor(ideal)).astype(int)
+        # distribute the remainder to the fastest finishers
+        while alloc.sum() < self.total:
+            finish = (alloc + 1) * self.t_ema
+            alloc[np.argmin(finish)] += 1
+        while alloc.sum() > self.total:
+            finish = alloc * self.t_ema
+            alloc[np.argmax(finish)] -= 1
+        if self.makespan(alloc) < self.makespan(self.alloc) * (
+                1 - self.hysteresis):
+            self.alloc = alloc
+        return self.alloc
+
+
+# ---------------------------------------------------------------------------
+# failure detection
+# ---------------------------------------------------------------------------
+
+class HeartbeatMonitor:
+    """Declares a group dead after ``timeout`` without a beat.  The
+    monitor is clock-agnostic (``beat``/``check`` take the caller's
+    ``now``), so ``last`` is seeded from the *first* clock reading it
+    sees — construction ``now`` if given, else the first ``beat``/
+    ``check`` — giving never-beaten groups a full timeout of grace.
+    (The old 0.0 seed declared the whole fleet dead on the first check
+    whenever the caller's clock read beyond ``timeout`` at startup.)"""
+
+    def __init__(self, n_groups: int, timeout: float,
+                 now: float | None = None):
+        self.timeout = timeout
+        self.last = np.full(n_groups, 0.0 if now is None else float(now))
+        self._seeded = now is not None
+        self.dead: set[int] = set()
+
+    def _seed(self, now: float) -> None:
+        if not self._seeded:
+            self._seeded = True
+            self.last[:] = now
+
+    def beat(self, group: int, now: float) -> None:
+        self._seed(now)
+        self.last[group] = now
+
+    def check(self, now: float) -> set[int]:
+        self._seed(now)
+        for g in range(len(self.last)):
+            if g not in self.dead and now - self.last[g] > self.timeout:
+                self.dead.add(g)
+        return self.dead

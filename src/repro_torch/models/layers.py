@@ -263,29 +263,31 @@ def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
 
     Padded rows (``i >= qlen[b]``) and rows at or past the cache
     (``start[b] + i >= Smax``) must not reach the cache, where the
-    reference drops them with an out-of-bounds scatter.  Here every row
-    ``i`` writes row ``(start[b] + i) % Smax``: for ``T <= Smax`` those
-    rows are distinct within a slot, so no index repeats in the
-    assignment; the live ones take the chunk's K/V, and every other one
-    takes back its own old value, gathered before the write.  That is
-    exact, and needs no host sync.  The attention still takes all
-    ``qlen[b]`` queries: one past the cache attends to all ``Smax`` rows,
-    as the reference's does."""
+    reference drops them with an out-of-bounds scatter.  Only the chunk's
+    first ``W = min(T, Smax)`` rows are candidates: a row ``i >= Smax``
+    sits at position ``>= Smax`` and is never live.  Row ``i < W`` writes
+    row ``(start[b] + i) % Smax``; those rows are distinct within a slot,
+    so no index repeats in the assignment; the live ones take the chunk's
+    K/V, and every other one takes back its own old value, gathered before
+    the write.  That is exact, and needs no host sync.  The attention
+    still takes all ``qlen[b]`` queries: one past the cache attends to all
+    ``Smax`` rows, as the reference's does."""
     cdt = torch_dtype(cfg.compute_dtype)
     x = x.to(cdt)
     B, T, _ = x.shape
     kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Smax, Hkv, hd)
     Smax = kl.shape[1]
-    if T > Smax:
-        raise ValueError(f"a chunk of {T} tokens does not fit a cache of "
-                         f"{Smax} rows")
+    W = min(T, Smax)
     q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
-    rows = positions.long() % Smax
+    pos_w = positions[:, :W]
+    rows = pos_w.long() % Smax
     batch_ix = torch.arange(B, device=x.device)[:, None]
-    live = ((torch.arange(T, device=x.device)[None, :] < qlen[:, None])
-            & (positions < Smax))[:, :, None, None]
-    kl[batch_ix, rows] = torch.where(live, k.to(kl.dtype), kl[batch_ix, rows])
-    vl[batch_ix, rows] = torch.where(live, v.to(vl.dtype), vl[batch_ix, rows])
+    live = ((torch.arange(W, device=x.device)[None, :] < qlen[:, None])
+            & (pos_w < Smax))[:, :, None, None]
+    kl[batch_ix, rows] = torch.where(live, k[:, :W].to(kl.dtype),
+                                     kl[batch_ix, rows])
+    vl[batch_ix, rows] = torch.where(live, v[:, :W].to(vl.dtype),
+                                     vl[batch_ix, rows])
     out = prefill_chunk_attention(cfg, q, kl, vl, start, qlen)
     return out @ p.wo
 

@@ -392,7 +392,7 @@ class ServeEngine:
             return
         pf = self.prefilling[0]
         prompt = np.asarray(pf.req.prompt)
-        C = min(self.prefill_chunk_tokens, self.max_seq)
+        C = self.prefill_chunk_tokens
         qlen = min(C, len(prompt) - pf.consumed)
         t0 = time.perf_counter()
         if pf.t_start is None:

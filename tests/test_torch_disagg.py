@@ -202,17 +202,45 @@ def test_attention_prefill_chunk_inplace_matches_jax(arch):
 
 
 def test_attention_prefill_chunk_refuses_chunk_longer_than_cache():
+    """A chunk longer than the cache is no longer refused (the name is
+    kept from when it was): as in the reference, rows at or past ``Smax``
+    are dropped, the rows below it are written, and every query attends.
+    Outputs within 1e-5 of the JAX function; the cache equal on the live
+    rows and bit-identical on every row it must not write."""
+    jc = get_config("smollm-135m", reduced=True)
     tc = tget_config("smollm-135m", reduced=True)
-    rng = np.random.default_rng(0)
-    p = TL.Attention(tc, {n: torch.from_numpy(a)
-                          for n, a in _attn_params(tc, rng).items()})
-    cache = torch.zeros(1, 1, 4, tc.n_kv_heads, tc.hd)
-    pos = torch.arange(6, dtype=torch.int32)[None]
-    with pytest.raises(ValueError, match="does not fit"):
-        TL.attention_prefill_chunk_inplace(
-            tc, p, torch.zeros(1, 6, tc.d_model), cache, cache.clone(), 0,
-            torch.zeros(1, dtype=torch.int32),
-            torch.full((1,), 6, dtype=torch.int32), pos)
+    rng = np.random.default_rng(4)
+    L, B, Smax, T = 2, 3, 4, 6
+    p = _attn_params(jc, rng)
+    x = _np(rng, B, T, jc.d_model)
+    kfull = _np(rng, L, B, Smax, jc.n_kv_heads, jc.hd)
+    vfull = _np(rng, L, B, Smax, jc.n_kv_heads, jc.hd)
+    # the whole chunk from 0, a ragged one from 1, and one starting past
+    # the cache
+    start = np.asarray([0, 1, 5], np.int32)
+    qlen = np.asarray([6, 4, 2], np.int32)
+    positions = start[:, None] + np.arange(T, dtype=np.int32)[None]
+    want, jk, jv = JL.attention_prefill_chunk_inplace(
+        jc, {n: jnp.asarray(a) for n, a in p.items()}, jnp.asarray(x),
+        jnp.asarray(kfull), jnp.asarray(vfull), 1, jnp.asarray(start),
+        jnp.asarray(qlen), jnp.asarray(positions))
+    tk, tv = torch.from_numpy(kfull.copy()), torch.from_numpy(vfull.copy())
+    got = TL.attention_prefill_chunk_inplace(
+        tc, TL.Attention(tc, {n: torch.from_numpy(a) for n, a in p.items()}),
+        torch.from_numpy(x), tk, tv, 1, torch.from_numpy(start),
+        torch.from_numpy(qlen), torch.from_numpy(positions))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    live = np.zeros((L, B, Smax), bool)
+    for b in range(B):
+        live[1, b, start[b]:min(start[b] + qlen[b], Smax)] = True
+    assert live.sum() == 4 + 3
+    for got_c, want_c, old in ((tk, jk, kfull), (tv, jv, vfull)):
+        got_c = got_c.numpy()
+        np.testing.assert_allclose(got_c[live], np.asarray(want_c)[live],
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_array_equal(got_c[~live], old[~live])
+        np.testing.assert_array_equal(np.asarray(want_c)[~live], old[~live])
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ against the JAX package on the CPU with the same weights (carried over by
   path at chunk 1 and 4 and the legacy path, with a prompt one token
   shorter as the control;
 * chunked prefill of a prompt as long as or longer than the cache (rows
-  at or past ``max_seq`` are dropped, not wrapped onto the first rows);
+  at or past ``max_seq`` are dropped, not wrapped onto the first rows),
+  also in one chunk longer than the cache;
 * a bfloat16 session the JAX engine exports (``ml_dtypes`` leaves) and
   the port imports;
 
@@ -125,6 +126,23 @@ def test_chunked_prefill_past_the_cache_matches_jax(pair, arch, plen):
                      prefill_chunk_tokens=8, decode_chunk=2)
     assert got == want, (arch, plen, got, want)
     assert teng.scheduler.ptt.updates == jeng.scheduler.ptt.updates
+
+
+@pytest.mark.parametrize("chunk", [48, 64])
+def test_chunk_longer_than_the_cache_matches_jax(pair, chunk):
+    """A chunk longer than ``max_seq`` (40-token prompts, chunks of 48 and
+    64): the reference prefills each prompt in one chunk and drops the
+    rows past the cache; the port must too, so that the PTT learns the
+    same samples (three prefills and three decode chunks: 6 updates, not
+    the 9 of a prompt split at the cache)."""
+    jm, params, tm, tp = pair("qwen2-0.5b")
+    prompts = _prompts(tm.cfg.vocab, 40, n=3)
+    want, jeng = _run(ServeEngine, Request, jm, params, prompts, 4,
+                      prefill_chunk_tokens=chunk)
+    got, teng = _run(TServeEngine, TRequest, tm, tp, prompts, 4,
+                     prefill_chunk_tokens=chunk)
+    assert got == want, (chunk, got, want)
+    assert teng.scheduler.ptt.updates == jeng.scheduler.ptt.updates == 6
 
 
 @pytest.mark.parametrize("arch", ARCHS)
