@@ -83,7 +83,25 @@ Phases, in order; any failure exits non-zero before the last line:
              co-tenant's launches) give; client TTFT, TPOT, tok/s, wall
              per pump, drift ratios, the migration pause, the handoff's
              TTFT breakdown, alerts and peak memory are printed;
-8. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
+8. region  — the serve phase's model behind ``RegionGateway`` over two
+             fleets of two replicas each (8 slots, chunks of 4): 8 of the
+             serve phase's prompts (64-1024 tokens), 16 new tokens each,
+             all entering at region 0 and staying home (the link's RTT row
+             trained first); after 3 pumps fleet 0 is browned out and the
+             next pump drains every live session to fleet 1 as wire bytes:
+             once over ``ReliableTransport(ChaosTransport(
+             LoopbackTransport))`` with ``tests/test_chaos.py``'s region
+             faults (drop 0.3, corrupt 0.1, duplicate 0.4, a partition of
+             link 0 -> 1 over injector steps [2, 4), 10 attempts, no
+             jitter), once over the plain ``LoopbackTransport``.  Fleet 0
+             holds no live session after the drain pump, every request is
+             served once, duplicates are deduplicated, every stream equals
+             its solo stream and each kernel's launches equal the engines'
+             counts; ships, wire and raw bytes, host export / encode /
+             ship / decode times, the transport's and the injector's
+             counts, the drain pass, the moved requests' TTFT and TPOT and
+             peak memory are printed;
+9. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
              32 experts top-8), random weights from the seed: 8 requests
              with prompts of 103-992 tokens and 32 new tokens each, 8
              slots, chunks of 4; every request finishes in vocabulary,
@@ -93,7 +111,16 @@ Phases, in order; any failure exits non-zero before the last line:
              TPOT, TTFT, peak memory, and a profiled decode window (its
              device-busy share, the MoE layers' and expert products'
              device time);
-9. ssm     — mamba2-130m at full width and depth (24 layers, d_model 768,
+10. moe-alt — granite-moe-1b-a400m at full width with ``moe_every = 2``
+             (the reference's alternating layout, not a published
+             checkpoint): 12 superblocks of one SwiGLU dense layer and one
+             MoE layer (32 experts top-8), random weights from the seed;
+             the MoE phase's 8 prompts, 16 new tokens each, 8 slots,
+             chunks of 4; every request finishes in vocabulary, 24 flash
+             launches a prefill and 24 ragged decodes a token step, and a
+             session moved through the wire mid-decode continues the
+             unmigrated stream; tok/s, TPOT, TTFT and peak memory;
+11. ssm    — mamba2-130m at full width and depth (24 layers, d_model 768,
              24 SSM heads of 64, state 128, chunk 256), random weights
              from the seed: the MoE phase's 8 prompts and 32 new tokens
              each; every request finishes in vocabulary, no attention
@@ -102,7 +129,7 @@ Phases, in order; any failure exits non-zero before the last line:
              continues the unmigrated stream; tok/s, TPOT, TTFT, peak
              memory, the session's payload and host times, a profiled
              decode window and a 992-token prefill;
-10. hybrid — jamba-v0.1-52b at full width cut to one superblock (8 of 32
+12. hybrid — jamba-v0.1-52b at full width cut to one superblock (8 of 32
              layers, the most one card holds: 1 attention layer at 32/8
              heads and hd 128 without RoPE, 7 mamba layers, 4 of them with
              16 experts top-2), the same prompts and 16 new tokens each
@@ -112,7 +139,7 @@ Phases, in order; any failure exits non-zero before the last line:
              a profiled decode window split into the attention kernel,
              the MoE routing and dispatch, the expert products, the SSM
              layers and the rest;
-11. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
+13. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
              (10 of 100 layers: 8 self layers and 2 gated cross layers at
              64/8 heads, hd 128, 1601 image tokens), the cross gates set
              nonzero, the same prompts, each with its own seeded image
@@ -124,7 +151,7 @@ Phases, in order; any failure exits non-zero before the last line:
              memory, the weight bytes a step reads and their bound, and a
              profiled decode window split into the self-attention kernel,
              the cross-attention kernel and the rest;
-12. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
+14. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
              heads of 80, 945 M parameters): ``Model.forward`` over 8
              seeded clips of 1000 frames, warmed then timed; logits
              (8, 1000, 504) finite, 48 flash launches a forward, clip 0
@@ -132,11 +159,11 @@ Phases, in order; any failure exits non-zero before the last line:
              ``Model.prefill``; frames/s, ms a forward, the device-busy
              share, the share of the bf16 peak from the shapes' operations,
              peak memory;
-13. checkpoint — the MoE model's parameters cut to 2 layers, written by
+15. checkpoint — the MoE model's parameters cut to 2 layers, written by
              ``params_to_numpy`` + ``save_checkpoint`` and read back by
              ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
              prompt's logits bit-identical; seconds and bytes;
-14. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+16. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -1307,11 +1334,11 @@ def _fleet_report(tag, np, gw, routed, lat, pumps, wall, tokens, card):
           f"{1e3 * np.median(pumps):.3f} ms over {len(pumps)} pumps ({card})")
 
 
-def _fleet_check_launches(tag, got, exp):
+def _fleet_check_launches(tag, got, exp, phase="fleet"):
     for k, v in exp.items():
-        check(got[k] == v, f"fleet {tag}: {k} launched {got[k]} times, the "
-                           f"engines' counts give {v}")
-    print(f"[fleet] {tag}: launches {got} (exact)")
+        check(got[k] == v, f"{phase} {tag}: {k} launched {got[k]} times, "
+                           f"the engines' counts give {v}")
+    print(f"[{phase}] {tag}: launches {got} (exact)")
 
 
 def _drive(gw, reqs, followups, on_pump, max_pumps):
@@ -1671,7 +1698,215 @@ def phase_fleet(torch, card, model, params, reqs):
 
 
 # ---------------------------------------------------------------------------
-# 8. the MoE family (and the serving run the SSM and hybrid phases share)
+# 8. the region tier
+# ---------------------------------------------------------------------------
+
+REGION_NEW = 16              # new tokens a request
+REGION_BROWNOUT = 3          # pumps before fleet 0 is browned out
+REGION_LINK_RTT = 1e-3       # seconds a delivery over the loopback link
+REGION_MAX_PUMPS = 60
+# tests/test_chaos.py::test_region_chaos_drain_token_identity's faults: its
+# rates, its partition of link 0 -> 1 over pumps [2, 4) of the injector's
+# clock (advanced once a pump), 10 attempts and no jitter; the simulated
+# backoff starts at 0.5 ms and doubles to at most 2 ms, so that a retried
+# delivery's reported time stays below what staying home costs
+REGION_FAULTS = dict(drop=0.3, corrupt=0.1, duplicate=0.4)
+REGION_PARTITION = (2, 4)
+REGION_BACKOFF = (5e-4, 2e-3)
+
+
+def _timed(obj, name, log):
+    """Replace ``obj.name`` by a wrapper that appends each call's seconds
+    to ``log``; returns the function that restores it."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            log.append(time.perf_counter() - t0)
+    setattr(obj, name, run)
+    return lambda: setattr(obj, name, fn)
+
+
+def phase_region(torch, seed, card, model, params, serve_reqs):
+    """qwen2-0.5b at full width behind ``RegionGateway`` over two fleets of
+    two replicas each (``FleetGateway``, 8 slots, chunks of 4): 8 of the
+    serve phase's prompts, 16 new tokens each, all entering at region 0
+    (the link's RTT row trained first, so that every request stays home);
+    after 3 pumps fleet 0 is browned out and the next pump drains its live
+    sessions to fleet 1 as wire bytes.  Once over ``ReliableTransport``
+    (``ChaosTransport`` over a ``LoopbackTransport``, seeded faults, the
+    injector advanced once a pump) and once over the plain
+    ``LoopbackTransport``.  Fleet 0 holds no live session after the drain
+    pump, nothing is lost or adopted twice, every stream equals its solo
+    stream, and every kernel's launches equal the engines' own counts."""
+    import numpy as np
+    from repro_torch.chaos import (ChaosTransport, FaultInjector,
+                                   ReliableTransport)
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.kernels.stream_copy import ops as sc
+    from repro_torch.region import (LoopbackTransport, RegionGateway,
+                                    gateway as region_gateway)
+    from repro_torch.router import FleetGateway
+    from repro_torch.serve import Request, ServeEngine
+
+    L = model.cfg.n_layers
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [r.prompt for r in serve_reqs[::2]]
+    solo = [_solo_stream(torch, np, model, params, p, REGION_NEW, None)[0]
+            for p in prompts]
+    launches = {"ragged_decode": 0, "flash_attention": 0,
+                "ragged_prefill": 0, "stream_copy": 0}
+
+    def link(s, d):
+        return REGION_LINK_RTT
+
+    for chaos in (True, False):
+        tag = "chaos" if chaos else "control"
+        inj = None
+        if chaos:
+            inj = (FaultInjector(seed).default_link(**REGION_FAULTS)
+                   .partition(0, 1, start=REGION_PARTITION[0],
+                              until=REGION_PARTITION[1]))
+            transport = ReliableTransport(
+                ChaosTransport(LoopbackTransport(link), inj),
+                max_attempts=10, base_backoff=REGION_BACKOFF[0],
+                max_backoff=REGION_BACKOFF[1], jitter=0.0, seed=seed)
+        else:
+            transport = LoopbackTransport(link)
+        fleets = [FleetGateway([ServeEngine(model, params, max_batch=8,
+                                            max_seq=2048, decode_chunk=4)
+                                for _ in range(2)]) for _ in range(2)]
+        lat = _hook_steps(fleets[1])      # fleet 1 decodes moved sessions
+        region = RegionGateway(fleets, transport=transport)
+        # the link's row trained, as by earlier traffic: a fresh request's
+        # search then charges the hop, and every request stays home
+        region.router.record_rtt(0, 1, REGION_LINK_RTT)
+        times = {"export": [], "encode": [], "ship": [], "decode": [],
+                 "drain": []}
+        restore = [_timed(fleets[0], "export_for_region", times["export"]),
+                   _timed(region_gateway, "encode_session", times["encode"]),
+                   _timed(region_gateway, "decode_session", times["decode"]),
+                   _timed(transport, "ship", times["ship"]),
+                   _timed(region, "_drain_browned_out", times["drain"])]
+        reqs = [Request(rid=i, prompt=p, max_new=REGION_NEW)
+                for i, p in enumerate(prompts)]
+        _fleet_counts(rd, fa, rp, sc, zero=True)
+        t0 = time.perf_counter()
+        homes = [region.submit(r, origin=0, affinity=0).fleet for r in reqs]
+        check(homes == [0] * len(reqs), f"region {tag}: requests routed to "
+                                        f"{homes}, not all home")
+        for _ in range(REGION_BROWNOUT):
+            region.pump()
+            if inj is not None:
+                inj.advance()
+        live = [rid for rid, _, _ in fleets[0].live_sessions()]
+        check(len(live) == len(reqs),
+              f"region {tag}: {len(live)} live sessions on fleet 0 at the "
+              f"brownout, not {len(reqs)}")
+        region.brownout(0)
+        pumps = 0
+        for _ in range(REGION_MAX_PUMPS):
+            if inj is not None:
+                inj.advance()
+            active = region.pump()
+            pumps += 1
+            if pumps == 1:
+                left = fleets[0].live_sessions()
+                check(not left and not any(
+                    e.active_count() or e.pending()
+                    for e in fleets[0].engines),
+                    f"region {tag}: fleet 0 still holds {left} after the "
+                    f"drain pump")
+                at_drain = region.stats()
+            if (active == 0 and not any(gw.held for gw in fleets)
+                    and not any(e.pending() for gw in fleets
+                                for e in gw.engines)):
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for undo in restore:
+            undo()
+        got = _fleet_counts(rd, fa, rp, sc)
+        exp = {k: 0 for k in got}
+        for gw in fleets:
+            for k, v in _fleet_expected(gw, L).items():
+                exp[k] += v
+        _fleet_check_launches(tag, got, exp, phase="region")
+        for k, v in got.items():
+            launches[k] += v
+        st = region.stats()
+        check(st["requests_served"] == len(reqs),
+              f"region {tag}: {st['requests_served']} served, not "
+              f"{len(reqs)}")
+        check(at_drain["wan_ships"] >= len(live),
+              f"region {tag}: {at_drain['wan_ships']} ships at the drain, "
+              f"{len(live)} live sessions at the brownout")
+        check(st["fleet_served"] == [0, len(reqs)],
+              f"region {tag}: served per fleet {st['fleet_served']}")
+        for r, want in zip(reqs, solo):
+            h = region.request(r.rid)
+            check(h.done and list(h.out_tokens) == want,
+                  f"region {tag}: request {r.rid}'s stream differs from its "
+                  f"solo stream")
+        moved = [rid for rid in live if region.request(rid) is not reqs[rid]]
+        check(sorted(moved) == sorted(live),
+              f"region {tag}: moved {moved}, live at the brownout {live}")
+        if inj is not None:
+            faults, sent = dict(inj.counts), transport.stats()
+            check(st["duplicates_deduped"] + st["duplicates_dropped"]
+                  == faults["duplicate"],
+                  f"region chaos: {faults['duplicate']} duplicated "
+                  f"deliveries, {st['duplicates_deduped']} deduplicated "
+                  f"and {st['duplicates_dropped']} dropped")
+            check(sent["exhausted"] == st["delivery_failures"] == 0,
+                  f"region chaos: deliveries failed: {sent}")
+        ttft = region.ttfts()
+        ttft_moved = np.asarray([ttft[rid] for rid in moved])
+        tpot = np.asarray([x for r in lat for x in r])
+        n = max(st["wan_ships"], 1)
+        drain_s = times.pop("drain")[REGION_BROWNOUT]   # the drain pump's
+        per = {k: 1e3 * sum(v) / max(len(v), 1) for k, v in times.items()}
+        print(f"[region] {tag}: {len(reqs)} requests x {REGION_NEW} tokens, "
+              f"prompts {min(map(len, prompts))}-{max(map(len, prompts))}, "
+              f"all home on fleet 0; browned out after {REGION_BROWNOUT} "
+              f"pumps with {len(live)} live sessions, all moved by the next "
+              f"pump; {pumps} pumps after the brownout; wall {wall:.3f} s")
+        print(f"[region] {tag}: {st['wan_ships']} ships, {st['wan_bytes']} "
+              f"wire bytes, {st['raw_session_bytes']} raw bytes "
+              f"({st['raw_session_bytes'] / n:.0f} a ship); the drain pass "
+              f"{1e3 * drain_s:.3f} ms ({1e3 * drain_s / n:.3f} ms a ship); "
+              f"per call: export "
+              f"{per['export']:.3f} ms (device to host), encode "
+              f"{per['encode']:.3f} ms, ship {per['ship']:.3f} ms "
+              f"({len(times['ship'])} ships), decode {per['decode']:.3f} ms "
+              f"({len(times['decode'])} decodes, duplicates included) "
+              f"({card})")
+        if inj is not None:
+            print(f"[region] chaos: transport {sent}; injector {faults}; "
+                  f"duplicates deduplicated {st['duplicates_deduped']}, "
+                  f"dropped {st['duplicates_dropped']}; RTT row 0->1 "
+                  f"{st['rtt_rows'][0][1]:.6f} s")
+        print(f"[region] {tag}: moved requests' client TTFT (arrival -> "
+              f"first token, on fleet 0) p50 "
+              f"{1e3 * float(np.median(ttft_moved)):.3f} ms; their TPOT on "
+              f"fleet 1 p50 {1e3 * float(np.median(tpot)):.3f} ms over "
+              f"{len(tpot)} decode steps; {len(reqs)} streams identical to "
+              f"their solo streams ({card})")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[region] peak device memory {peak} bytes; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 9. the MoE family (and the serving run the SSM and hybrid phases share)
 # ---------------------------------------------------------------------------
 
 MOE_NEW = 32
@@ -1869,7 +2104,64 @@ def phase_moe(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 9. the SSM family
+# 10. the MoE family's alternating dense / MoE layout
+# ---------------------------------------------------------------------------
+
+MOE_ALT_EVERY = 2
+MOE_ALT_NEW = 16
+
+
+def phase_moe_alt(torch, seed, card, serve_reqs):
+    """granite-moe-1b-a400m at full width with ``moe_every = 2`` (set with
+    ``dataclasses.replace``): 12 superblocks, each one SwiGLU dense layer
+    and one MoE layer (32 experts top-8).  The layout is the reference's
+    (``repro/models/moe.py``'s superblock scan), not a published
+    checkpoint; the weights are random, from the seed.  The MoE phase's 8
+    prompts, 16 new tokens each, 8 slots, chunks of 4: every request
+    finishes in vocabulary, 24 flash launches a prefill and 24 ragged
+    decodes a token step, and a session moved through the wire mid-decode
+    continues the unmigrated stream."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              moe_every=MOE_ALT_EVERY)
+    nb, per_d = moe.layout(cfg)
+    model, params = _init_family(
+        torch, "moe-alt", cfg, seed, card,
+        note=f" with moe_every {cfg.moe_every}: {nb} superblocks of "
+             f"{per_d} dense SwiGLU layer (d_ff {cfg.d_ff}) and 1 MoE layer "
+             f"({cfg.n_experts} experts top-{cfg.top_k}, d_expert "
+             f"{cfg.d_expert}), {cfg.n_heads}/{cfg.n_kv_heads} heads")
+    spec = model.cache_spec(8, 2048)
+    print(f"[moe-alt] cache leaves "
+          f"{ {k: tuple(v[0]) for k, v in spec.items()} }")
+    # the MoE phase's prompts: the same draws over the same vocabulary
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
+               for r in serve_reqs[::2]]
+    reqs, lat, launches, _ = _serve_family(torch, np, "moe-alt", cfg, model,
+                                           params, prompts, MOE_ALT_NEW,
+                                           card)
+    check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
+          f"moe-alt: flash_attention launches "
+          f"{launches['flash_attention']} != {len(reqs)} prefills x "
+          f"{cfg.n_layers} layers")
+    steps = len(lat)
+    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+          f"moe-alt: ragged_decode launches {launches['ragged_decode']} != "
+          f"{steps} steps x 4 tokens x {cfg.n_layers} layers")
+    check(launches["ragged_prefill"] == 0, "moe-alt: a chunk kernel ran")
+    _wire_check("moe-alt", model, params, min(prompts, key=len), MOE_ALT_NEW,
+                card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 11. the SSM family
 # ---------------------------------------------------------------------------
 
 SSM_NEW = 32
@@ -1920,7 +2212,7 @@ def phase_ssm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 10. the hybrid family
+# 12. the hybrid family
 # ---------------------------------------------------------------------------
 
 HYBRID_LAYERS = 8            # one superblock: what one card's memory holds
@@ -2004,7 +2296,7 @@ def phase_hybrid(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 11. the vlm family
+# 13. the vlm family
 # ---------------------------------------------------------------------------
 
 VLM_LAYERS = 10              # two superblocks: the stacked nb axis is checked
@@ -2120,7 +2412,7 @@ def phase_vlm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 12. the audio family
+# 14. the audio family
 # ---------------------------------------------------------------------------
 
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000     # 20 s of audio each at 50 Hz
@@ -2233,7 +2525,7 @@ def phase_audio(torch, seed, card):
 
 
 # ---------------------------------------------------------------------------
-# 13. checkpoints
+# 15. checkpoints
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS = 2
@@ -2294,7 +2586,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 14. the paper's threaded runtime
+# 16. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -2592,9 +2884,11 @@ def main() -> int:
         launches["ragged_prefill"] = chunked["ragged_prefill"]
         phase_wire(torch, card, model, params, reqs)
         fleet = phase_fleet(torch, card, model, params, reqs)
+        region = phase_region(torch, args.seed, card, model, params, reqs)
         del model, params
         # every serving path's launches: each phase's run counts from 0
         for path in (phase_moe(torch, args.seed, card, reqs),
+                     phase_moe_alt(torch, args.seed, card, reqs),
                      phase_ssm(torch, args.seed, card, reqs),
                      phase_hybrid(torch, args.seed, card, reqs),
                      phase_vlm(torch, args.seed, card, reqs),
@@ -2604,7 +2898,7 @@ def main() -> int:
         del reqs
         phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))
-        for kernel, n in fleet.items():
+        for kernel, n in (*fleet.items(), *region.items()):
             launches[kernel] += n
         launches["stream_scale_add"] = scale_add_launches
         kernels = kernel_line(stats, launches)

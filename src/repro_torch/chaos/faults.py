@@ -29,8 +29,8 @@ deterministic regardless of wall-clock speed.
 
 This is the PyTorch port's copy of ``repro.chaos.faults``: the same
 plan, the same draws in the same order from one ``random.Random(seed)``.
-The chaos transport and the reliable sender are not ported yet; here the
-plan drives the fleet gateway's crash / restart schedule.
+The plan drives the fleet gateway's crash / restart schedule and the
+link faults of :class:`~repro_torch.chaos.transport.ChaosTransport`.
 """
 
 from __future__ import annotations

@@ -16,6 +16,9 @@ The trees, by family:
 * dense, MoE (``moe_every == 1``), SSM: ``tok``, ``layers`` (every leaf
   stacked on ``L``: ``ln1`` / ``attn`` / ``ln2`` / ``mlp`` or ``moe``, or
   for the SSM ``ln`` / ``ssm``) and ``ln_f``;
+* MoE at ``moe_every > 1``: ``tok``, ``dense_layers`` stacked on ``(nb,
+  per_d)`` (``ln1`` / ``attn`` / ``ln2`` / ``mlp``), ``moe_layers`` on
+  ``(nb,)`` (``ln1`` / ``attn`` / ``ln2`` / ``moe``) and ``ln_f``;
 * audio: the dense tree (LayerNorm biases, qkv and MLP biases) and
   ``head`` (D, vocab);
 * hybrid: ``tok``, ``attn_layers`` stacked on ``(nb,)``, ``mamba_moe`` on
@@ -42,16 +45,11 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
-from . import jamba, vlm
+from . import jamba, moe, vlm
 from . import layers as L
 from .mamba2 import SSM, SSMLayer
-from .moe import MoE, MoEBlock, _check_layout
+from .moe import MoE, MoEBlock
 from .transformer import Block, Transformer
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        _check_layout(cfg)
 
 
 def _take(tree: dict, idx) -> dict:
@@ -60,9 +58,13 @@ def _take(tree: dict, idx) -> dict:
             for k, v in tree.items()}
 
 
+def _alternating(cfg: ModelConfig) -> bool:
+    return cfg.family == "moe" and cfg.moe_every > 1
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
-                      ) -> Transformer | jamba.Jamba | vlm.VLM:
-    _check_family(cfg)
+                      ) -> Transformer | moe.AlternatingMoE | jamba.Jamba \
+        | vlm.VLM:
     device = resolve_device(device)
 
     def t(a) -> torch.Tensor:
@@ -115,6 +117,13 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
              for i in range(per_self)],
             cross_layer(_take(tree["cross_layers"], b))) for b in range(nb)]
         return vlm.VLM(embed, blocks, ln_f)
+    if _alternating(cfg):
+        nb, per_d = moe.layout(cfg)
+        blocks = [moe.SuperBlock(
+            [attn_layer(_take(tree["dense_layers"], (b, i)))
+             for i in range(per_d)],
+            attn_layer(_take(tree["moe_layers"], b))) for b in range(nb)]
+        return moe.AlternatingMoE(embed, blocks, ln_f)
     lay = tree["layers"]
     if cfg.family == "ssm":
         layers = [SSMLayer(norm(_take(lay["ln"], i)),
@@ -142,12 +151,12 @@ def _stacked(trees: list[dict]) -> dict:
 
 
 def params_to_numpy(cfg: ModelConfig,
-                    model: Transformer | jamba.Jamba | vlm.VLM) -> dict:
+                    model: Transformer | moe.AlternatingMoE | jamba.Jamba
+                    | vlm.VLM) -> dict:
     """The reference's parameter tree of ``model``, numpy leaves in
     ``cfg.param_dtype``.  Weights the port keeps in a narrower compute
     dtype widen exactly, so ``params_from_numpy`` of the result rebuilds
     the same tensors."""
-    _check_family(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
     def host(tree: dict) -> dict:
@@ -168,6 +177,12 @@ def params_to_numpy(cfg: ModelConfig,
                                        for sb in model.blocks])
         out["cross_layers"] = _stacked([_module_tree(sb.cross)
                                         for sb in model.blocks])
+    elif _alternating(cfg):
+        out["dense_layers"] = _stacked([_stacked([_module_tree(lp) for lp in
+                                                  sb.dense_layers])
+                                        for sb in model.blocks])
+        out["moe_layers"] = _stacked([_module_tree(sb.moe_layer)
+                                      for sb in model.blocks])
     else:
         out["layers"] = _stacked([_module_tree(lp) for lp in model.layers])
         if cfg.family == "audio":

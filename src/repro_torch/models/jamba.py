@@ -15,8 +15,10 @@ kernel (``layers.attention_apply(..., rope=False)``), decode the
 (``layers.attention_decode_inplace(..., rope=False)``, with its edge
 repair for ``pos >= Smax``).  The mamba layers are ``models/mamba2.py``'s.
 The MoE layers call ``moe.moe_ffn`` directly: prefill at capacity, where
-a copy can be dropped, decode at no-drop capacity.  The MoE family's own
-layout check (``moe_every == 1``) is not on this path.
+a copy can be dropped, decode at no-drop capacity.  The hybrid's
+``moe_every = 2`` is this superblock's, not the MoE family's alternating
+layout, and the MoE family's own check (``moe._check_layout``) is not on
+this path.
 
 The cache holds six leaves with the reference's names, shapes and dtypes:
 ``k`` / ``v`` ``(nb, B, Smax, Hkv, hd)``, ``ssm_moe`` / ``ssm_dense``

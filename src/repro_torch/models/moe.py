@@ -1,13 +1,11 @@
 """Mixture-of-Experts transformer (granite-moe, qwen3-moe): the port's
 counterpart of ``repro/models/moe.py``.
 
-Every layer is attention (``models/layers.py``: the ``flash_attention``
-kernel at prefill, ``ragged_decode`` at decode) followed by an MoE block in
-place of the dense MLP.  The layer loop, the K/V caches and their layout
-are the dense family's (``models/transformer.py``); only the block's
-``ffn`` differs.  The MoE block is a softmax router over
-``n_experts``, the top-k experts of each token with their weights
-renormalised, and a SwiGLU expert FFN.
+Every MoE layer is attention (``models/layers.py``: the
+``flash_attention`` kernel at prefill, ``ragged_decode`` at decode)
+followed by an MoE block in place of the dense MLP.  The MoE block is a
+softmax router over ``n_experts``, the top-k experts of each token with
+their weights renormalised, and a SwiGLU expert FFN.
 
 Dispatch is the reference's sort-based one (``_sorted_positions`` and
 ``_local_dispatch`` with one expert column), which computes the same
@@ -28,12 +26,27 @@ function as its one-hot ``moe_dense`` oracle:
   step reads a value on the host, so decode stays free of host syncs and
   its launch count does not depend on the routing.
 
-Only ``moe_every == 1`` is ported, the layout of both MoE configs; the
-alternating dense / MoE layout (the ``k_dense`` / ``k_moe`` cache) is not,
-and no shipped config uses it.  The hybrid family (``models/jamba.py``)
-does not need it: it calls :func:`moe_ffn` inside its own superblock.
-There is no ``prefill_chunk``, as the reference has none: the engine
-prefills MoE prompts whole.
+Two layouts, as in the reference:
+
+* ``moe_every == 1`` (both shipped MoE configs): every layer is an MoE
+  layer.  The layer loop, the ``k`` / ``v`` ``(L, B, Smax, Hkv, hd)``
+  caches and their layout are the dense family's
+  (``models/transformer.py``); only the block's ``ffn`` differs.
+* ``moe_every > 1``: ``nb = n_layers // moe_every`` superblocks
+  (:class:`SuperBlock`), each ``per_d = moe_every - 1`` dense
+  ``transformer.Block``s followed by one :class:`MoEBlock`, in the
+  reference's order (its ``_run_layers`` scan).  The cache holds four
+  leaves with the reference's names, dtypes, logical axes and sequence
+  axes: ``k_dense`` / ``v_dense`` ``(nb, per_d, B, Smax, Hkv, hd)`` and
+  ``k_moe`` / ``v_moe`` ``(nb, B, Smax, Hkv, hd)``.  Decode writes them in
+  place through ``attention_decode_inplace`` (the dense leaves on a
+  ``(nb * per_d, B, Smax, Hkv, hd)`` view), with its edge rule: a slot at
+  ``pos >= Smax`` writes nothing, as the reference's scatter drops the
+  write.
+
+The hybrid family (``models/jamba.py``) calls :func:`moe_ffn` inside its
+own superblock.  There is no ``prefill_chunk``, as the reference has none:
+the engine prefills MoE prompts whole.
 """
 
 from __future__ import annotations
@@ -53,11 +66,16 @@ from . import transformer
 def _check_layout(cfg: ModelConfig) -> None:
     if cfg.family != "moe":
         raise NotImplementedError(f"family {cfg.family!r} is not 'moe'")
-    if cfg.moe_every != 1:
-        raise NotImplementedError(
-            f"moe_every={cfg.moe_every}: the alternating dense / MoE layout "
-            f"is not ported yet (ROADMAP A3; no shipped config uses it, and "
-            f"the hybrid family runs its own superblock)")
+
+
+def layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(superblocks, dense layers per superblock) of the ``moe_every > 1``
+    layout; ``n_layers`` must be a multiple of ``moe_every``, as the
+    reference's reshape of the stacked dense layers requires."""
+    if cfg.n_layers % cfg.moe_every:
+        raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
+                         f"moe_every={cfg.moe_every}")
+    return cfg.n_layers // cfg.moe_every, cfg.moe_every - 1
 
 
 class MoE(nn.Module):
@@ -85,6 +103,33 @@ class MoEBlock(nn.Module):
         return moe_ffn(cfg, self.moe, h, decode)
 
 
+class SuperBlock(nn.Module):
+    """``dense_layers`` (``moe_every - 1`` ``transformer.Block``s) and
+    ``moe_layer`` (one :class:`MoEBlock`)."""
+
+    def __init__(self, dense_layers: list[transformer.Block],
+                 moe_layer: MoEBlock):
+        super().__init__()
+        self.dense_layers = nn.ModuleList(dense_layers)
+        self.moe_layer = moe_layer
+
+
+class AlternatingMoE(nn.Module):
+    """The ``moe_every > 1`` layout: ``tok``, ``blocks`` (one
+    :class:`SuperBlock` per ``moe_every`` layers) and ``ln_f``."""
+
+    def __init__(self, tok: L.Embedding, blocks: list[SuperBlock],
+                 ln_f: L.Norm):
+        super().__init__()
+        self.tok = tok
+        self.blocks = nn.ModuleList(blocks)
+        self.ln_f = ln_f
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok.embed.device
+
+
 def _uniform(gen, shape, bound: float, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     return t.uniform_(-bound, bound, generator=gen)
@@ -103,21 +148,33 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device) -> MoE:
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
-         device=None) -> transformer.Transformer:
+         device=None) -> transformer.Transformer | AlternatingMoE:
     """Random weights from the reference's distributions, drawn on
-    ``device`` (the card unless the caller passes one) from ``generator``.
-    Not the reference's numbers: parity tests carry weights over with
+    ``device`` (the card unless the caller passes one) from ``generator``:
+    a ``transformer.Transformer`` of MoE layers at ``moe_every == 1``,
+    else an :class:`AlternatingMoE`.  Not the reference's numbers: parity
+    tests carry weights over with
     :func:`repro_torch.models.convert.params_from_numpy`."""
     _check_layout(cfg)
     device = resolve_device(device)
+
+    def moe_layer() -> MoEBlock:
+        return MoEBlock(L.norm_init(cfg.d_model, cfg.norm, device),
+                        L.attention_init(cfg, generator, device),
+                        L.norm_init(cfg.d_model, cfg.norm, device),
+                        moe_init(cfg, generator, device))
+
     tok = L.embedding_init(cfg, generator, device)
-    layers = [MoEBlock(L.norm_init(cfg.d_model, cfg.norm, device),
-                       L.attention_init(cfg, generator, device),
-                       L.norm_init(cfg.d_model, cfg.norm, device),
-                       moe_init(cfg, generator, device))
-              for _ in range(cfg.n_layers)]
-    ln_f = L.norm_init(cfg.d_model, cfg.norm, device)
-    return transformer.Transformer(tok, layers, ln_f)
+    if cfg.moe_every == 1:
+        layers = [moe_layer() for _ in range(cfg.n_layers)]
+        return transformer.Transformer(
+            tok, layers, L.norm_init(cfg.d_model, cfg.norm, device))
+    nb, per_d = layout(cfg)
+    blocks = [SuperBlock([transformer._layer_init(cfg, generator, device)
+                          for _ in range(per_d)], moe_layer())
+              for _ in range(nb)]
+    return AlternatingMoE(tok, blocks,
+                          L.norm_init(cfg.d_model, cfg.norm, device))
 
 
 # ---------------------------------------------------------------------------
@@ -198,16 +255,91 @@ def moe_ffn(cfg: ModelConfig, p: MoE, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# entry points: the dense family's layer loop, K/V stacking and cache
-# layout, each layer running its own FFN (:meth:`MoEBlock.ffn`)
+# entry points: at ``moe_every == 1`` the dense family's layer loop, K/V
+# stacking and cache layout, each layer running its own FFN
+# (:meth:`MoEBlock.ffn`); above it the superblocks
 # ---------------------------------------------------------------------------
 
-prefill = transformer.prefill
-decode = transformer.decode
-cache_logical_axes = transformer.cache_logical_axes
-cache_seq_axes = transformer.cache_seq_axes
+LEAVES = ("k_dense", "v_dense", "k_moe", "v_moe")
+
+
+def _prefill_superblocks(cfg: ModelConfig, p: AlternatingMoE, batch: dict):
+    """Whole prompts through every superblock; returns the final residual
+    (B, S, D) and the four cache leaves at prompt length."""
+    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    leaves = {name: [] for name in LEAVES}
+    for sb in p.blocks:
+        ks, vs = [], []
+        for lp in sb.dense_layers:
+            x, (k, v) = transformer._block_prefill(cfg, lp, x, positions)
+            ks.append(k)
+            vs.append(v)
+        x, (k, v) = transformer._block_prefill(cfg, sb.moe_layer, x,
+                                               positions)
+        leaves["k_dense"].append(torch.stack(ks))
+        leaves["v_dense"].append(torch.stack(vs))
+        leaves["k_moe"].append(k)
+        leaves["v_moe"].append(v)
+    cache = {name: torch.stack(ts) for name, ts in leaves.items()}
+    return L.apply_norm(p.ln_f, x, cfg.norm), cache
+
+
+def prefill(cfg: ModelConfig, p, batch: dict):
+    """Whole prompts; returns (last-token logits (B, 1, V), the cache at
+    prompt length).  The MoE layers run at the reference's prefill
+    capacity, where a copy can be dropped."""
+    if cfg.moe_every == 1:
+        return transformer.prefill(cfg, p, batch)
+    x, cache = _prefill_superblocks(cfg, p, batch)
+    return L.lm_head(cfg, p.tok, x[:, -1:]), cache
+
+
+def decode(cfg: ModelConfig, p, token, pos, cache: dict):
+    """One decode step, every cache leaf written in place (the returned
+    cache is the same dict of the same tensors), the MoE layers at no-drop
+    capacity.  ``pos``: a scalar or a per-slot (B,) vector."""
+    if cfg.moe_every == 1:
+        return transformer.decode(cfg, p, token, pos, cache)
+    x = L.embed_tokens(cfg, p.tok, token)
+    pos = L.position_vector(pos, x.shape[0], x.device)
+    nb, per_d = layout(cfg)
+    # (nb, per_d, B, Smax, Hkv, hd) as (nb * per_d, ...): a view, so the
+    # in-place writes land in the cache
+    kd = cache["k_dense"].view(nb * per_d, *cache["k_dense"].shape[2:])
+    vd = cache["v_dense"].view(nb * per_d, *cache["v_dense"].shape[2:])
+    for b, sb in enumerate(p.blocks):
+        for i, lp in enumerate(sb.dense_layers):
+            x = transformer._block_decode(cfg, lp, x, kd, vd, b * per_d + i,
+                                          pos)
+        x = transformer._block_decode(cfg, sb.moe_layer, x, cache["k_moe"],
+                                      cache["v_moe"], b, pos)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """{leaf name: (shape, dtype)} of the decode cache."""
     _check_layout(cfg)
-    return transformer.cache_spec(cfg, batch, max_seq)
+    if cfg.moe_every == 1:
+        return transformer.cache_spec(cfg, batch, max_seq)
+    nb, per_d = layout(cfg)
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    cdt = torch_dtype(cfg.compute_dtype)
+    return {"k_dense": ((nb, per_d, *kv), cdt),
+            "v_dense": ((nb, per_d, *kv), cdt),
+            "k_moe": ((nb, *kv), cdt), "v_moe": ((nb, *kv), cdt)}
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    if cfg.moe_every == 1:
+        return transformer.cache_logical_axes(cfg)
+    ax = ("batch", "seq_mp", None, None)
+    return {"k_dense": (None, None, *ax), "v_dense": (None, None, *ax),
+            "k_moe": (None, *ax), "v_moe": (None, *ax)}
+
+
+def cache_seq_axes(cfg: ModelConfig):
+    if cfg.moe_every == 1:
+        return transformer.cache_seq_axes(cfg)
+    return {"k_dense": 3, "v_dense": 3, "k_moe": 2, "v_moe": 2}

@@ -12,7 +12,12 @@ JAX package with the same inputs and weights (carried over by
   against the reference's ``ref.py`` and its Pallas kernel in interpret
   mode;
 * checkpoint files byte-identical, and ``params_to_numpy`` inverting
-  ``params_from_numpy``.
+  ``params_from_numpy``;
+* the ``ServeEngine`` serving the audio model from frames in a request's
+  ``extras`` (12 seeded frames, ``max_seq`` 32, chunks of 2, 3 new
+  tokens): an empty and a 12-token prompt give the JAX engine's tokens,
+  and a session moved after its first step, in process or over the wire
+  (from either package), continues the unmigrated stream.
 
 The qkv, LayerNorm and MLP biases are zero at init, which would hide a
 bias that is dropped or misplaced: every test sets them to nonzero draws
@@ -34,11 +39,14 @@ from repro.configs import get_config
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models import get_model
+from repro.serve import Request, ServeEngine
 from repro_torch.checkpoint import store as tstore
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import get_model as tget_model
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.serve import Request as TRequest
+from repro_torch.serve import ServeEngine as TServeEngine
 
 ARCH = "hubert-xlarge"
 TOL = 1e-4
@@ -215,3 +223,74 @@ def test_params_to_numpy_inverts_params_from_numpy(pair):
     for (path, g), (_, w) in zip(got, want):
         assert g.dtype == w.dtype == np.float32, path
         np.testing.assert_array_equal(g, w, err_msg=str(path))
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+N_FRAMES = 12
+
+
+def _audio_request(req_cls, cfg, plen, max_new=3):
+    """A request whose ``extras`` carry 12 seeded frames (the audio
+    prefill reads them, not the prompt's ids); ``plen`` prompt tokens."""
+    frames = _frames(cfg, 1, N_FRAMES, seed=21)[0]
+    prompt = np.random.default_rng(22).integers(0, cfg.vocab, plen)
+    return req_cls(rid=0, prompt=prompt, max_new=max_new,
+                   extras={"frames": frames})
+
+
+def _audio_engine(entry, kind, decode_chunk=2):
+    jm, params, tm, tp = entry
+    if kind == "jax":
+        return ServeEngine(jm, params, max_batch=2, max_seq=32,
+                           decode_chunk=decode_chunk), Request
+    return TServeEngine(tm, tp, max_batch=2, max_seq=32,
+                        decode_chunk=decode_chunk), TRequest
+
+
+@pytest.mark.parametrize("plen", (0, N_FRAMES))
+def test_engine_tokens_match_jax(pair, plen):
+    """Both engines serve the audio model from the request's frames and
+    give the same greedy tokens, for an empty and a 12-token prompt."""
+    out = {}
+    for kind in ("jax", "torch"):
+        eng, req_cls = _audio_engine(pair(), kind)
+        req = _audio_request(req_cls, eng.model.cfg, plen)
+        eng.submit(req)
+        eng.run_until_drained(max_steps=50)
+        assert req.done
+        out[kind] = list(req.out_tokens)
+    assert len(out["torch"]) == 3
+    assert all(0 <= t < pair()[2].cfg.vocab for t in out["torch"])
+    assert out["torch"] == out["jax"], out
+
+
+@pytest.mark.parametrize("src,how", [("torch", "in-process"),
+                                     ("torch", "wire"), ("jax", "wire")])
+def test_migrated_session_continues_the_stream(pair, src, how):
+    """A session exported after its first step (the prefill token and one
+    decode token) and resumed on a port engine finishes with the JAX
+    engine's unmigrated tokens; its frames travel in ``extras``."""
+    entry = pair()
+    jeng, _ = _audio_engine(entry, "jax", decode_chunk=1)
+    want = _audio_request(Request, jeng.model.cfg, N_FRAMES)
+    jeng.submit(want)
+    jeng.run_until_drained(max_steps=50)
+    a, req_cls = _audio_engine(entry, src, decode_chunk=1)
+    b, _ = _audio_engine(entry, "torch", decode_chunk=1)
+    req = _audio_request(req_cls, a.model.cfg, N_FRAMES)
+    a.submit(req)
+    a.step()
+    assert 0 < len(req.out_tokens) < 3
+    if how == "wire":
+        b.import_session_wire(a.export_session_wire(0))
+        req = b.sessions_in[-1].req
+        np.testing.assert_array_equal(req.extras["frames"],
+                                      _frames(entry[2].cfg, 1, N_FRAMES,
+                                              seed=21)[0])
+    else:
+        b.import_session(a.export_session(0))
+    b.run_until_drained(max_steps=50)
+    assert req.done and list(req.out_tokens) == list(want.out_tokens)

@@ -17,7 +17,7 @@ so a swapped ``(nb, i)`` index of the stacked layers or caches shows):
   port checkpoint loading into the JAX model, and ``params_to_numpy``
   inverting ``params_from_numpy``;
 * the MoE family's layout check (``moe._check_layout``, which refuses
-  ``moe_every > 1``) on none of the hybrid's entry points.
+  every family but ``"moe"``) on none of the hybrid's entry points.
 
 Float32 on both sides unless a test says bfloat16; tokens are exact, the
 tolerances cover summation order only.
@@ -40,7 +40,6 @@ from repro.models import sessions as jsessions
 from repro.serve import Request, ServeEngine
 from repro_torch.checkpoint import store as tstore
 from repro_torch.configs import get_config as tget_config
-from repro_torch.models import convert
 from repro_torch.models import get_model as tget_model
 from repro_torch.models import moe as TMoE
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
@@ -143,16 +142,17 @@ def test_prefill_and_decode_logits_match_jax(pair, n_layers):
 
 
 def test_moe_layout_check_is_not_on_the_hybrid_path(pair, monkeypatch):
-    """The reduced hybrid config has ``moe_every = 2``, which the MoE
-    family refuses: with the check made to fail, init, cache_spec,
-    prefill, decode and both conversions still run."""
+    """The reduced hybrid config has ``moe_every = 2``, its own superblock's
+    and not the MoE family's alternating layout, and its family is not
+    ``"moe"``, which the MoE family's check refuses: with the check made
+    to fail, init, cache_spec, prefill, decode and both conversions still
+    run."""
     _, params, tm, _ = pair()
     assert tm.cfg.moe_every == 2
 
     def refuse(cfg):
         raise AssertionError("moe._check_layout is on the hybrid path")
     monkeypatch.setattr(TMoE, "_check_layout", refuse)
-    monkeypatch.setattr(convert, "_check_layout", refuse)
     tp = tm.init(torch.Generator().manual_seed(1), "cpu")
     cache = {n: torch.zeros(shape, dtype=dt)
              for n, (shape, dt) in tm.cache_spec(1, MAX_SEQ).items()}

@@ -37,7 +37,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.models import get_model as tget_model
 from repro_torch.models import moe as TM
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.region.wire import decode_session as tdecode
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
@@ -165,13 +165,30 @@ def test_route_and_sorted_positions_match_jax():
         np.asarray(JM._sorted_positions(jnp.asarray(flat), 8)))
 
 
-def test_moe_every_above_one_raises():
+@pytest.mark.parametrize("every,n_layers", [(2, 4), (3, 6)])
+def test_moe_every_above_one_matches_the_jax_tree(every, n_layers):
+    """The alternating dense / MoE layout: the port's own init and
+    ``params_from_numpy`` of the JAX package's init give the reference's
+    tree, ``dense_layers`` on ``(nb, per_d)`` and ``moe_layers`` on
+    ``(nb,)``, leaf for leaf by path and shape (the layout's numbers are
+    held in ``tests/test_torch_moe_layout.py``)."""
+    kw = dict(moe_every=every, n_layers=n_layers)
+    jc = dataclasses.replace(get_config("granite-moe-1b-a400m",
+                                        reduced=True), **kw)
     tc = dataclasses.replace(tget_config("granite-moe-1b-a400m",
-                                         reduced=True), moe_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tget_model(tc).init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        params_from_numpy(tc, {}, "cpu")
+                                         reduced=True), **kw)
+    jm = get_model(jc)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))[0])
+    nb, per_d = n_layers // every, every - 1
+    assert tree["dense_layers"]["attn"]["wq"].shape[:2] == (nb, per_d)
+    assert tree["moe_layers"]["moe"]["router"].shape[0] == nb
+    want = [(p, w.shape) for p, w in
+            jax.tree_util.tree_flatten_with_path(tree)[0]]
+    own = tget_model(tc).init(torch.Generator().manual_seed(0), "cpu")
+    for model in (own, params_from_numpy(tc, tree, "cpu")):
+        got = jax.tree_util.tree_flatten_with_path(
+            params_to_numpy(tc, model))[0]
+        assert [(p, g.shape) for p, g in got] == want
 
 
 # ---------------------------------------------------------------------------
