@@ -21,7 +21,14 @@ Phases, in order; any failure exits non-zero before the last line:
              at 32/8, hd 128, the vlm's self (992 causal) and cross (992
              queries, 1601 image keys) prefills at 64/8, hd 128, and
              hubert-xlarge's 8 x 1000 frames at 16/16, hd 80 in bf16 and
-             float32;
+             float32; the training path's flash attention: the forward's
+             log-sum-exp and the backward's dq, dk, dv against
+             ``attention_ref_lse`` / ``attention_ref_backward`` at qwen2's
+             training shape (8 x 1024, 14/2, hd 64, causal), 17 and 1000
+             tokens, 16/8, 32/8 at hd 128, the vlm's cross case (992 x
+             1601, 64/8, non-causal), hubert's 16/16 at hd 80 and float32
+             at hd 64, 80 and 128, with the backward and forward +
+             backward timed against SDPA's;
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
              chunks crossing, starting at and starting past the cache's
@@ -36,7 +43,24 @@ Phases, in order; any failure exits non-zero before the last line:
              time the card could take (bytes over memory rate or
              operations over peak rate, whichever is larger), and the
              launch floor (an empty kernel under the same timing);
-4. serve   — qwen2-0.5b at full width, random weights from the seed,
+4. train   — qwen2-0.5b trained at full width (24 layers, 14/2 heads of
+             64, vocab 151,936; float32 masters and AdamW state, bf16
+             compute), random weights from the seed, through
+             ``repro_torch.launch.train``'s ``run`` on SyntheticLMData
+             batches of 8 x 1024: one step, after which every parameter
+             has a finite, nonzero gradient; then 20 steps with finite,
+             falling losses (all printed) and exact launch counts (flash
+             forward two a layer a step, a forward and the recompute of the
+             checkpointed block; the flash backward one a layer a step);
+             step p50, tokens/s, MFU against 989 TFLOP/s and peak memory;
+             one 2 x 256 batch's loss and gradient norm against the port's
+             own CPU run (float32, plain versions) within stated limits; 5
+             steps, the state through host memory, 5 steps against 10
+             straight, bit for bit; one step each of granite-moe-1b-a400m
+             at full width and mamba2-130m whole (loss finite, every
+             dense, attention and SSM parameter with a finite nonzero
+             gradient);
+5. serve   — qwen2-0.5b at full width, random weights from the seed,
              through ``ServeEngine``: 16 requests with prompts of 64-1024
              tokens and 64 new tokens each, over 8 slots in chunks of 4;
              every request must finish with 64 in-vocabulary tokens, the
@@ -44,7 +68,7 @@ Phases, in order; any failure exits non-zero before the last line:
              during the run, and a session exported mid-decode and
              imported into a second engine must continue the same token
              stream as the unmigrated request;
-5. chunked — the same 16 prompts through a second engine that prefills in
+6. chunked — the same 16 prompts through a second engine that prefills in
              chunks of 256 tokens (the ``ragged_prefill`` kernel), 16 new
              tokens each: every request finishes in vocabulary, and the
              chunk, decode and whole-prompt kernels launched exactly as
@@ -54,13 +78,13 @@ Phases, in order; any failure exits non-zero before the last line:
              continue the unmigrated chunked stream token for token; and
              the chunked and whole-prompt prefills of the longest prompt
              agree on its last-token logits within a stated limit;
-6. wire    — the serve phase's model: a session exported mid-decode and a
+7. wire    — the serve phase's model: a session exported mid-decode and a
              prefill exported after 2 of its chunks travel as wire bytes
              (``export_session_wire``) over a ``LoopbackTransport`` to a
              second engine and continue the unmigrated streams token for
              token; payload bytes, codec and the host's encode and decode
              times; a payload with a flipped bit is refused;
-7. fleet   — the serve phase's model and prompts behind ``FleetGateway``
+8. fleet   — the serve phase's model and prompts behind ``FleetGateway``
              over three replicas that share its parameters (8 slots,
              chunks of 4 each): (1) monolithic replicas, 32 new tokens a
              request and short follow-ups (the router's probe traffic),
@@ -83,7 +107,7 @@ Phases, in order; any failure exits non-zero before the last line:
              co-tenant's launches) give; client TTFT, TPOT, tok/s, wall
              per pump, drift ratios, the migration pause, the handoff's
              TTFT breakdown, alerts and peak memory are printed;
-8. region  — the serve phase's model behind ``RegionGateway`` over two
+9. region  — the serve phase's model behind ``RegionGateway`` over two
              fleets of two replicas each (8 slots, chunks of 4): 8 of the
              serve phase's prompts (64-1024 tokens), 16 new tokens each,
              all entering at region 0 and staying home (the link's RTT row
@@ -101,7 +125,7 @@ Phases, in order; any failure exits non-zero before the last line:
              ship / decode times, the transport's and the injector's
              counts, the drain pass, the moved requests' TTFT and TPOT and
              peak memory are printed;
-9. moe     — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
+10. moe    — granite-moe-1b-a400m at full width (24 layers, 16/8 heads,
              32 experts top-8), random weights from the seed: 8 requests
              with prompts of 103-992 tokens and 32 new tokens each, 8
              slots, chunks of 4; every request finishes in vocabulary,
@@ -111,7 +135,7 @@ Phases, in order; any failure exits non-zero before the last line:
              TPOT, TTFT, peak memory, and a profiled decode window (its
              device-busy share, the MoE layers' and expert products'
              device time);
-10. moe-alt — granite-moe-1b-a400m at full width with ``moe_every = 2``
+11. moe-alt — granite-moe-1b-a400m at full width with ``moe_every = 2``
              (the reference's alternating layout, not a published
              checkpoint): 12 superblocks of one SwiGLU dense layer and one
              MoE layer (32 experts top-8), random weights from the seed;
@@ -120,7 +144,7 @@ Phases, in order; any failure exits non-zero before the last line:
              launches a prefill and 24 ragged decodes a token step, and a
              session moved through the wire mid-decode continues the
              unmigrated stream; tok/s, TPOT, TTFT and peak memory;
-11. ssm    — mamba2-130m at full width and depth (24 layers, d_model 768,
+12. ssm    — mamba2-130m at full width and depth (24 layers, d_model 768,
              24 SSM heads of 64, state 128, chunk 256), random weights
              from the seed: the MoE phase's 8 prompts and 32 new tokens
              each; every request finishes in vocabulary, no attention
@@ -129,7 +153,7 @@ Phases, in order; any failure exits non-zero before the last line:
              continues the unmigrated stream; tok/s, TPOT, TTFT, peak
              memory, the session's payload and host times, a profiled
              decode window and a 992-token prefill;
-12. hybrid — jamba-v0.1-52b at full width cut to one superblock (8 of 32
+13. hybrid — jamba-v0.1-52b at full width cut to one superblock (8 of 32
              layers, the most one card holds: 1 attention layer at 32/8
              heads and hd 128 without RoPE, 7 mamba layers, 4 of them with
              16 experts top-2), the same prompts and 16 new tokens each
@@ -139,7 +163,7 @@ Phases, in order; any failure exits non-zero before the last line:
              a profiled decode window split into the attention kernel,
              the MoE routing and dispatch, the expert products, the SSM
              layers and the rest;
-13. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
+14. vlm    — llama-3.2-vision-90b at full width cut to two superblocks
              (10 of 100 layers: 8 self layers and 2 gated cross layers at
              64/8 heads, hd 128, 1601 image tokens), the cross gates set
              nonzero, the same prompts, each with its own seeded image
@@ -151,7 +175,7 @@ Phases, in order; any failure exits non-zero before the last line:
              memory, the weight bytes a step reads and their bound, and a
              profiled decode window split into the self-attention kernel,
              the cross-attention kernel and the rest;
-14. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
+15. audio  — hubert-xlarge at full width and depth (48 layers, 16/16
              heads of 80, 945 M parameters): ``Model.forward`` over 8
              seeded clips of 1000 frames, warmed then timed; logits
              (8, 1000, 504) finite, 48 flash launches a forward, clip 0
@@ -159,11 +183,11 @@ Phases, in order; any failure exits non-zero before the last line:
              ``Model.prefill``; frames/s, ms a forward, the device-busy
              share, the share of the bf16 peak from the shapes' operations,
              peak memory;
-15. checkpoint — the MoE model's parameters cut to 2 layers, written by
+16. checkpoint — the MoE model's parameters cut to 2 layers, written by
              ``params_to_numpy`` + ``save_checkpoint`` and read back by
              ``load_checkpoint`` + ``params_from_numpy`` onto the card: one
              prompt's logits bit-identical; seconds and bytes;
-16. runtime — the paper's experiment: the mixed random DAG (150 matmul,
+17. runtime — the paper's experiment: the mixed random DAG (150 matmul,
              150 sort, 150 copy tasks, average width 4, edge rate 2)
              through the threaded XiTAO runtime on 4 workers, every TAO
              body running its kernel class (``matmul``, ``bitonic_sort``,
@@ -208,6 +232,8 @@ PEAKS = {"PCIe": (2.0e12, 756e12, 51e12),
          "SXM": (3.35e12, 989e12, 67e12)}
 
 N_TIMED = 20
+TRAIN_BATCH = 8              # the train phase's global batch and sequence
+TRAIN_SEQ = 1024
 SPIN_CYCLES = 2_000_000      # ~1 ms of device time at the H100's clock
 
 
@@ -380,6 +406,143 @@ def flash_case(torch, F, fa, gen, peaks, flush, dt, S, causal, tol,
           f"{ms / lib_ms:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+
+
+def _attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: query i sees keys 0..i when
+    causal (positions from 0 on both sides), every key otherwise."""
+    return (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+            else Sq * Skv)
+
+
+def flash_bwd_case(torch, F, fa, gen, peaks, flush, dt, S, causal, rel_tol,
+                   lse_tol, Skv=None, hd=64, Hq=14, Hkv=2, B=1):
+    """The training path's attention at one shape: the forward's log-sum-
+    exp against ``attention_ref_lse``, and dq, dk, dv of the backward
+    kernels (fed the kernel forward's output and LSE) against
+    ``attention_ref_backward`` fed the plain forward's.  A gradient's
+    limit is ``rel_tol`` times its reference's largest magnitude.  Times:
+    the backward alone (kernel, plain, and SDPA's backward on a retained
+    graph) and forward + backward (the LSE forward and the backward
+    kernels against SDPA's forward and ``autograd.grad``), each against
+    its bound."""
+    Sq, Skv = S, Skv or S
+    dev = "cuda"
+    mk = lambda s, h: torch.randn(B, s, h, hd, generator=gen,
+                                  device=dev).to(dt).transpose(1, 2)
+    q, k, v, dO = mk(Sq, Hq), mk(Skv, Hkv), mk(Skv, Hkv), mk(Sq, Hq)
+    n_f, n_b = fa.launches, fa.bwd_launches
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal, lse=True)
+    grads = fa.flash_attention_backward(q, k, v, out, dO, lse,
+                                        causal=causal)
+    out_r, lse_r = fa.attention_ref_lse(q, k, v, causal=causal)
+    refs = fa.attention_ref_backward(q, k, v, out_r, dO, lse_r,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    label = (f"flash_attention_bwd {str(dt)[6:]} B={B} Sq={Sq} Skv={Skv} "
+             f"Hq={Hq} Hkv={Hkv} hd={hd} causal={causal}")
+    check(bool(torch.isfinite(lse).all()), f"{label}: non-finite lse")
+    lse_err = (lse - lse_r).abs().max().item()
+    check(lse_err <= lse_tol, f"{label}: lse max abs err {lse_err} > "
+          f"{lse_tol}")
+    errs = []
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite {name}")
+        err = (g.float() - r.float()).abs().max().item()
+        lim = rel_tol * r.float().abs().max().item()
+        check(err <= lim, f"{label}: {name} max abs err {err} > {lim}")
+        errs.append((name, err, lim))
+    bwd = lambda: fa.flash_attention_backward(q, k, v, out, dO, lse,
+                                              causal=causal)
+    ms = time_ms(torch, bwd, flush)
+    plain_ms = time_ms(torch, lambda: fa.attention_ref_backward(
+        q, k, v, out_r, dO, lse_r, causal=causal), flush)
+    plain_fwd_ms = time_ms(torch, lambda: fa.attention_ref_lse(
+        q, k, v, causal=causal), flush)
+
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal), flush)
+    fwd_lse_ms = time_ms(torch, lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal, lse=True), flush)
+
+    def ours():
+        o, l = fa.flash_attention_forward(q, k, v, causal=causal, lse=True)
+        return fa.flash_attention_backward(q, k, v, o, dO, l, causal=causal)
+    fwd_bwd_ms = time_ms(torch, ours, flush)
+    qc, kc, vc = (t.detach().contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    doc = dO.contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=causal, enable_gqa=True)
+    kept = sdpa()
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        kept, (qc, kc, vc), doc, retain_graph=True), flush)
+    lib_fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qc, kc, vc), doc), flush)
+    del kept
+    fa.launches, fa.bwd_launches = n_f, n_b    # checks do not count
+    es = q.element_size()
+    n_q, n_kv = B * Hq * Sq * hd, B * Hkv * Skv * hd
+    pairs = _attn_pairs(Sq, Skv, causal)
+    # backward: reads q, k, v, o, dO and lse, writes dq, dk, dv; five
+    # products of 2 * hd operations per (head, pair)
+    bms, by = bound(peaks, (4 * n_q + 4 * n_kv) * es + B * Hq * Sq * 4,
+                    10 * B * Hq * hd * pairs, dt == torch.bfloat16)
+    # the forward with the LSE: reads q, k, v, writes o and lse; two
+    f_bms, f_by = bound(peaks, (2 * n_q + 2 * n_kv) * es + B * Hq * Sq * 4,
+                        4 * B * Hq * hd * pairs, dt == torch.bfloat16)
+    # forward + backward: reads q, k, v, dO, writes o, dq, dk, dv; seven
+    fb_bms, fb_by = bound(peaks, (4 * n_q + 4 * n_kv) * es,
+                          14 * B * Hq * hd * pairs, dt == torch.bfloat16)
+    print(f"[kernel] {label}: lse max_abs_err={lse_err:.3g} (limit "
+          f"{lse_tol}); "
+          + ", ".join(f"{n} {e:.3g} (limit {lim:.3g})" for n, e, lim in errs)
+          + f"; backward ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={bms:.5f} ({by}) kernel/library={ms / lib_ms:.2f}; "
+          f"forward+backward ms={fwd_bwd_ms:.4f} library_ms="
+          f"{lib_fwd_bwd_ms:.4f} bound_ms={fb_bms:.5f} ({fb_by}) "
+          f"kernel/library={fwd_bwd_ms / lib_fwd_bwd_ms:.2f}; forward "
+          f"ms={fwd_ms:.4f}, with the LSE {fwd_lse_ms:.4f} (plain "
+          f"{plain_fwd_ms:.4f}, bound_ms={f_bms:.5f} ({f_by}))")
+    return dict(max_abs_err=max(e for _, e, _ in errs),
+                lse_err=lse_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, fwd_bwd_ms=fwd_bwd_ms,
+                lib_fwd_bwd_ms=lib_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bms,
+                fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                plain_fwd_ms=plain_fwd_ms)
+
+
+# the backward's limits, relative to each gradient's largest magnitude:
+# bf16 rounds P and dS to bf16 (2^-9 relative) as product operands and the
+# gradient once more on output; float32 differs in summation order only.
+# The LSE's: absolute, natural-log units (values ~ ln Skv)
+BWD_REL_TOL = {"bf16": 2e-2, "f32": 1e-4}
+LSE_TOL = {"bf16": 1e-3, "f32": 1e-4}
+
+
+def flash_bwd_cases(torch, F, fa, gen, peaks, flush):
+    """The backward at the training path's shapes and its edges: qwen2's
+    training shape first (its numbers go into the kernels line), the
+    tails (17 and 1000 tokens), the MoE family's 16/8 heads, hd 128 at
+    32/8, the vlm's cross case (992 queries, 1601 keys, non-causal,
+    64/8), hubert's 16/16 at hd 80, and float32 at hd 64, 80 and 128."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    b = dict(rel_tol=BWD_REL_TOL["bf16"], lse_tol=LSE_TOL["bf16"])
+    f = dict(rel_tol=BWD_REL_TOL["f32"], lse_tol=LSE_TOL["f32"])
+    case = lambda dt, S, causal, **kw: flash_bwd_case(
+        torch, F, fa, gen, peaks, flush, dt, S, causal, **kw)
+    return [case(bf16, TRAIN_SEQ, True, B=TRAIN_BATCH, **b),
+            case(bf16, 17, True, B=2, **b),
+            case(bf16, 1000, True, B=2, **b),
+            case(bf16, TRAIN_SEQ, True, B=2, Hq=16, Hkv=8, **b),
+            case(bf16, TRAIN_SEQ, True, B=2, Hq=32, Hkv=8, hd=128, **b),
+            case(bf16, 992, False, Skv=VLM_IMAGE_TOKENS, Hq=64, Hkv=8,
+                 hd=128, **b),
+            case(bf16, 1000, False, B=8, Hq=16, Hkv=16, hd=80, **b),
+            case(f32, 333, True, **f),
+            case(f32, 100, False, Skv=300, Hq=16, Hkv=16, hd=80, **f),
+            case(f32, 200, True, Hq=32, Hkv=8, hd=128, **f)]
 
 
 def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
@@ -823,6 +986,7 @@ def phase_kernels(torch, seed, peaks):
                                     1000, [300, 0], [256, 5], 1e-4, False),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     100, [30], [128], 1e-4, False, T=128)]
+    fb_cases = flash_bwd_cases(torch, F, fa, gen, peaks, flush)
     paper = phase_paper_kernels(torch, gen, peaks, flush)
     del flush
     # the line's numbers: the first case of each, the serving path's shape
@@ -830,12 +994,263 @@ def phase_kernels(torch, seed, peaks):
                 c["max_abs_err"] for c in rd_cases[:-1])),
             "flash_attention": dict(fa_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fa_cases[:-1])),
+            # qwen2's training shape; the error over the bf16 cases
+            "flash_attention_bwd": dict(fb_cases[0], max_abs_err=max(
+                c["max_abs_err"] for c in fb_cases[:-3])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in rp_cases[:-3]))}
 
 
 # ---------------------------------------------------------------------------
-# 4. serve
+# 4. train
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_STEPS = 20
+TRAIN_RESTART = 5            # 5 steps, a restart, 5 steps vs 10 straight
+SLICE_BATCH = (2, 256)       # the whole-slice check's batch: rows, tokens
+# card (bf16 compute, the kernels) against the port's CPU run (float32,
+# plain versions) on the same float32 masters and batch: bf16 rounds each
+# product's operands (2^-9 relative) through 24 layers and a 151,936-wide
+# head; the loss is a mean over 512 tokens, the gradient norm a sum of
+# squares dominated by the largest leaves
+SLICE_LOSS_REL = 1e-3
+SLICE_GNORM_REL = 1e-2
+PEAK_BF16 = 989e12           # H100 SXM dense bf16, the MFU's denominator
+
+
+def _bad_grads(torch, module, skip=lambda name: False):
+    """Names of parameters whose gradient is missing, non-finite or all
+    zero (``skip``: names only held to finite)."""
+    bad = []
+    for name, p in module.named_parameters():
+        g = p.grad
+        if g is None or not bool(torch.isfinite(g).all()):
+            bad.append(name)
+        elif not skip(name) and not bool((g != 0).any()):
+            bad.append(name)
+    return bad
+
+
+def _train_args(arch, seed, steps, *extra):
+    return ["--arch", arch, "--steps", str(steps), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--seed",
+            str(seed), "--log-every", "5", *extra]
+
+
+def _train_flops(cfg, module) -> float:
+    """Model FLOPs of one step: 6 per weight of every matrix per token (the
+    tied embedding counted once, as the LM head), and the attention's
+    score and value products, forward and backward (3 x 4 x Hq x hd a
+    causal pair a layer).  The recompute is not counted."""
+    n_mm = sum(p.numel() for p in module.parameters() if p.dim() >= 2)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = (cfg.n_layers * 12 * TRAIN_BATCH * cfg.n_heads * cfg.hd
+            * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, True))
+    return 6.0 * n_mm * tokens + attn
+
+
+def phase_train(torch, seed, card):
+    """qwen2-0.5b trained at full width through ``repro_torch.launch.
+    train``'s ``run``: random weights from the seed, SyntheticLMData, global
+    batch 8 x 1024.  One step first, after which every parameter must
+    hold a finite, nonzero gradient; then the main path's 20 steps, with
+    exact launch counts (flash forward: a forward and a recompute a layer;
+    the backward: one a layer), finite and falling losses, step time,
+    tokens/s, MFU and peak memory; a whole-slice check of one 2 x 256
+    batch against the port's own CPU run in float32; a restart check; and
+    one step each of granite-moe-1b-a400m and mamba2-130m.  Returns the
+    main path's launches."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train as launch
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import (train_state_from_numpy,
+                                            train_state_to_numpy)
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+
+    def counted(argv, steps, layers):
+        fa.launches = fa.bwd_launches = 0
+        out = launch.run(argv)
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.bwd_launches)
+        check(got == (2 * layers * steps, layers * steps),
+              f"train {argv[1]}: launches {got}, expected "
+              f"{(2 * layers * steps, layers * steps)}")
+        return out, got
+
+    # one step: every parameter has a gradient (a cut graph leaves none)
+    one, _ = counted(_train_args(TRAIN_ARCH, seed, 1), 1, L)
+    module = one["step"].module
+    bad = _bad_grads(torch, module)
+    check(not bad, f"train: {len(bad)} parameters without a finite nonzero "
+          f"gradient after step 1: {bad[:8]}")
+    n_params = sum(p.numel() for p in module.parameters())
+    flops = _train_flops(cfg, module)
+    print(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+          f"{cfg.vocab}: {n_params} parameters, float32 masters and AdamW "
+          f"state, {cfg.compute_dtype} compute; after step 1 all "
+          f"{len(list(module.parameters()))} parameter tensors have a "
+          f"finite nonzero gradient; loss {one['losses'][0]:.4f}")
+    del one, module
+
+    # the main path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(_train_args(TRAIN_ARCH, seed, TRAIN_STEPS),
+                            TRAIN_STEPS, L)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and
+          losses[-1] < losses[0], f"train: the loss does not fall: {losses}")
+    steady = sorted(out["step_s"][1:])          # the first step warms up
+    p50 = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] losses: {[round(x, 4) for x in losses]}")
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"step p50 {p50 * 1e3:.2f} ms (steps 2-{TRAIN_STEPS}, min "
+          f"{steady[0] * 1e3:.2f}, max {steady[-1] * 1e3:.2f}), "
+          f"{tokens / p50:.0f} tokens/s, MFU {flops / p50 / PEAK_BF16:.4f} "
+          f"({flops / 1e12:.2f} model TFLOP a step over {PEAK_BF16:.3g} "
+          f"FLOP/s), peak memory {peak} bytes; launches {launches[0]} flash "
+          f"forward ({2 * L} a step: forward and recompute), {launches[1]} "
+          f"flash backward ({L} a step), {fa.dout_copies} dO copies ({card})")
+    del out
+
+    # the whole slice against the port's CPU run, same masters and batch
+    model = get_model(cfg)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=2 * TRAIN_RESTART)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    s0 = train_state_init(model, gen, opt, device="cuda")
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab,
+                                      global_batch=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ, seed=seed))
+    rows, toks = SLICE_BATCH
+    small = {k: torch.from_numpy(v[:rows, :toks])
+             for k, v in data.batch_at(0).items()}
+    n0 = (fa.launches, fa.bwd_launches)
+    loss_c, g_c = make_train_step(model, opt).value_and_grad(
+        s0["params"], {k: v.cuda() for k, v in small.items()})
+    fa.launches, fa.bwd_launches = n0           # checks do not count
+    gn_c = float(global_norm(g_c))
+    del g_c
+    torch.cuda.empty_cache()
+    cpu_model = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    t0 = time.perf_counter()
+    params_cpu = train_state_from_numpy(train_state_to_numpy(s0["params"]),
+                                        "cpu")
+    loss_h, g_h = make_train_step(cpu_model, opt).value_and_grad(
+        params_cpu, small)
+    gn_h = float(global_norm(g_h))
+    t_cpu = time.perf_counter() - t0
+    del g_h, params_cpu
+    d_loss = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    d_gn = abs(gn_c - gn_h) / gn_h
+    print(f"[train] whole slice, one {rows} x {toks} batch, same masters: "
+          f"card (bf16, kernels) loss {float(loss_c):.6f} grad norm "
+          f"{gn_c:.6f}; CPU (float32, plain versions, {t_cpu:.1f} s) loss "
+          f"{float(loss_h):.6f} grad norm {gn_h:.6f}; relative differences "
+          f"{d_loss:.3g} (limit {SLICE_LOSS_REL}) and {d_gn:.3g} (limit "
+          f"{SLICE_GNORM_REL})")
+    check(d_loss <= SLICE_LOSS_REL and d_gn <= SLICE_GNORM_REL,
+          "train: the card's loss or gradient norm is off the CPU run's")
+
+    # one step profiled after a warm one: the forward and backward, and
+    # AdamW, as ranges
+    from torch.profiler import record_function
+    from repro_torch.optim import adamw_update
+    n0 = (fa.launches, fa.bwd_launches)
+    prof_step = make_train_step(model, opt)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    prof_step(s0, batch)
+
+    def profiled():
+        with record_function("train.forward_backward"):
+            _, grads = prof_step.value_and_grad(s0["params"], batch)
+        with record_function("train.adamw"):
+            adamw_update(opt, grads, s0["opt"], s0["params"])
+    _profile_window(torch, profiled, f"one train step, {cfg.name}, "
+                    f"{TRAIN_BATCH} x {TRAIN_SEQ}", card, top=16,
+                    ranges=("train.forward_backward", "train.adamw"))
+    fa.launches, fa.bwd_launches = n0
+    del prof_step, batch
+    torch.cuda.empty_cache()
+
+    # restart: TRAIN_RESTART steps, the state through host memory (the
+    # checkpointer's own leaf conversion; its zlib pass over the 5.9 GB
+    # state would take minutes on the card's host, and the files are the
+    # CPU tests'), TRAIN_RESTART more, against the straight run
+    def steps(state, lo, hi):
+        step = make_train_step(model, opt)
+        for i in range(lo, hi):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch_at(i).items()}
+            state, _ = step(state, batch)
+        return state
+
+    n0 = (fa.launches, fa.bwd_launches)
+    straight = steps(s0, 0, 2 * TRAIN_RESTART)
+    half = train_state_to_numpy(steps(s0, 0, TRAIN_RESTART))
+    resumed = steps(train_state_from_numpy(half, "cuda"), TRAIN_RESTART,
+                    2 * TRAIN_RESTART)
+    fa.launches, fa.bwd_launches = n0
+    data.close()
+    pairs = list(zip(tree_leaves(straight), tree_leaves(resumed)))
+    differ = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    worst = max(((a.float() - b.float()).abs().max().item()
+                 for a, b in pairs), default=0.0)
+    print(f"[train] restart: {TRAIN_RESTART} steps, state to host and "
+          f"back, {TRAIN_RESTART} steps vs {2 * TRAIN_RESTART} straight: "
+          f"{len(pairs) - len(differ)} of {len(pairs)} leaves bitwise "
+          f"equal, max abs difference {worst}")
+    check(not differ, f"train: restart differs in {len(differ)} leaves "
+          f"(max abs {worst})")
+    del straight, resumed, half, s0, model
+    torch.cuda.empty_cache()
+
+    # one step each of the MoE and SSM families
+    for arch, layers, skip in (
+            ("granite-moe-1b-a400m", 24, lambda n: ".moe.w_" in n),
+            ("mamba2-130m", 0, lambda n: False)):
+        torch.cuda.reset_peak_memory_stats()
+        one, got = counted(_train_args(arch, seed, 1), 1, layers)
+        module = one["step"].module
+        check(math.isfinite(one["losses"][0]), f"train {arch}: loss "
+              f"{one['losses'][0]}")
+        bad = _bad_grads(torch, module, skip)
+        check(not bad, f"train {arch}: no finite nonzero gradient in "
+              f"{bad[:8]}")
+        idle = [n for n, p in module.named_parameters()
+                if skip(n) and not bool((p.grad != 0).any())]
+        print(f"[train] {arch} at full width, one step of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}: loss {one['losses'][0]:.4f}, "
+              f"{one['step_s'][0] * 1e3:.1f} ms, every parameter's gradient "
+              f"finite and every dense and attention one nonzero "
+              f"({len(idle)} expert tensors with a zero gradient); flash "
+              f"launches {got}; peak memory "
+              f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+        del one, module
+        torch.cuda.empty_cache()
+    return {"flash_attention": launches[0],
+            "flash_attention_bwd": launches[1]}
+
+
+# ---------------------------------------------------------------------------
+# 5. serve
 # ---------------------------------------------------------------------------
 
 def _solo_stream(torch, np, model, params, prompt, max_new, export_after):
@@ -953,7 +1368,7 @@ def phase_serve(torch, seed, card):
 
 
 # ---------------------------------------------------------------------------
-# 5. chunked prefill
+# 6. chunked prefill
 # ---------------------------------------------------------------------------
 
 CHUNK = 256
@@ -1123,7 +1538,7 @@ def phase_chunked(torch, card, model, params, whole_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 6. the session wire
+# 7. the session wire
 # ---------------------------------------------------------------------------
 
 def _wire_move(src, dst, rid, link, prefill: bool):
@@ -1241,7 +1656,7 @@ def phase_wire(torch, card, model, params, reqs):
 
 
 # ---------------------------------------------------------------------------
-# 7. the fleet tier
+# 8. the fleet tier
 # ---------------------------------------------------------------------------
 
 FLEET_NEW = 32               # new tokens a request in runs 1 and 2
@@ -1698,7 +2113,7 @@ def phase_fleet(torch, card, model, params, reqs):
 
 
 # ---------------------------------------------------------------------------
-# 8. the region tier
+# 9. the region tier
 # ---------------------------------------------------------------------------
 
 REGION_NEW = 16              # new tokens a request
@@ -1906,7 +2321,7 @@ def phase_region(torch, seed, card, model, params, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 9. the MoE family (and the serving run the SSM and hybrid phases share)
+# 10. the MoE family (and the serving run the SSM and hybrid phases share)
 # ---------------------------------------------------------------------------
 
 MOE_NEW = 32
@@ -2104,7 +2519,7 @@ def phase_moe(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 10. the MoE family's alternating dense / MoE layout
+# 11. the MoE family's alternating dense / MoE layout
 # ---------------------------------------------------------------------------
 
 MOE_ALT_EVERY = 2
@@ -2161,7 +2576,7 @@ def phase_moe_alt(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 11. the SSM family
+# 12. the SSM family
 # ---------------------------------------------------------------------------
 
 SSM_NEW = 32
@@ -2212,7 +2627,7 @@ def phase_ssm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 12. the hybrid family
+# 13. the hybrid family
 # ---------------------------------------------------------------------------
 
 HYBRID_LAYERS = 8            # one superblock: what one card's memory holds
@@ -2296,7 +2711,7 @@ def phase_hybrid(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 13. the vlm family
+# 14. the vlm family
 # ---------------------------------------------------------------------------
 
 VLM_LAYERS = 10              # two superblocks: the stacked nb axis is checked
@@ -2412,7 +2827,7 @@ def phase_vlm(torch, seed, card, serve_reqs):
 
 
 # ---------------------------------------------------------------------------
-# 14. the audio family
+# 15. the audio family
 # ---------------------------------------------------------------------------
 
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000     # 20 s of audio each at 50 Hz
@@ -2525,7 +2940,7 @@ def phase_audio(torch, seed, card):
 
 
 # ---------------------------------------------------------------------------
-# 15. checkpoints
+# 16. checkpoints
 # ---------------------------------------------------------------------------
 
 CKPT_LAYERS = 2
@@ -2586,7 +3001,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 16. the paper's threaded runtime
+# 17. the paper's threaded runtime
 # ---------------------------------------------------------------------------
 
 RUNTIME_TASKS = 150          # per kernel class: the mixed DAG of the paper
@@ -2750,7 +3165,9 @@ PROFILE_GROUPS = {"ragged_decode": ("decode_split_", "decode_combine"),
                   "flash_attention": ("flash_bf16_wgmma", "flash_f32"),
                   "ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
                   "bitonic_sort": ("sort_cluster", "global_step"),
-                  "matmul": ("matmul_kernel",)}
+                  "matmul": ("matmul_kernel",),
+                  "flash_attention_bwd": ("bwd_dkdv_", "bwd_dq_",
+                                          "bwd_dot")}
 
 
 def _profile_window(torch, fn, label: str, card: str, top: int = 8,
@@ -2876,10 +3293,13 @@ def main() -> int:
         print(f"[build] {len(_build.sources())} sources -> "
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         stats = phase_kernels(torch, args.seed, peaks)
+        train = phase_train(torch, args.seed, card)
         from repro_torch.kernels.stream_copy import ops as sc
         # scale-add is on no path: its launches are its kernel checks'
         scale_add_launches = sc.scale_add_launches
         launches, model, params, reqs = phase_serve(torch, args.seed, card)
+        launches["flash_attention"] += train["flash_attention"]
+        launches["flash_attention_bwd"] = train["flash_attention_bwd"]
         chunked = phase_chunked(torch, card, model, params, reqs)
         launches["ragged_prefill"] = chunked["ragged_prefill"]
         phase_wire(torch, card, model, params, reqs)
@@ -2925,6 +3345,14 @@ def kernel_line(stats: dict, launches: dict) -> list[dict]:
              replaces="src/repro/kernels/flash_attention/kernel.py:74",
              launches=launches["flash_attention"],
              **stats["flash_attention"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:74",
+             launches=launches["flash_attention_bwd"],
+             **{k: stats["flash_attention_bwd"][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
         dict(name="ragged_prefill", route="cuda",
              source="src/repro_torch/kernels/ragged_prefill/csrc/"
                     "ragged_prefill.cu",

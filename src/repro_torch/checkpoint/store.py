@@ -110,13 +110,15 @@ def host_leaf(x, uint16_is_bf16: bool = False) -> tuple[str, np.ndarray]:
 def device_leaf(dtype: str, arr: np.ndarray, device) -> torch.Tensor:
     """The inverse of :func:`host_leaf`: a host array as a tensor on
     ``device``; under ``"bfloat16"`` its ``uint16`` bits are viewed as
-    bfloat16, bit for bit, never widened."""
-    arr = np.ascontiguousarray(arr)
+    bfloat16, bit for bit, never widened.  A 0-d array (an optimizer's
+    step count) stays 0-d."""
+    shape = np.shape(arr)
+    arr = np.ascontiguousarray(arr)        # makes a 0-d array 1-d
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(device)
+    return t.reshape(shape).to(device)
 
 
 def pack_record(dtype: str, arr: np.ndarray) -> dict:

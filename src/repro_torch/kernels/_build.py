@@ -114,11 +114,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [
         I,                 # dtype code
         P, P, P, P,        # q, k, v, out
+        P,                 # lse (float32 (B, Hq, Sq)) or null
         I, I, I, I, I, I,  # B, Hq, Hkv, Sq, Skv, hd
         ctypes.POINTER(ctypes.c_longlong),   # 12 strides (see ops)
         I, F,              # causal, scale
         P]                 # stream
     lib.flash_attention_launch.restype = I
+    lib.flash_attention_bwd_launch.argtypes = [
+        I,                 # dtype code
+        P, P, P, P, P,     # q, k, v, o, dO
+        P, P,              # lse, D scratch (float32 (B, Hq, Sq))
+        P, P, P,           # dq, dk, dv
+        I, I, I, I, I, I,  # B, Hq, Hkv, Sq, Skv, hd
+        ctypes.POINTER(ctypes.c_longlong),   # 24 strides (see ops)
+        I, F,              # causal, scale
+        P]                 # stream
+    lib.flash_attention_bwd_launch.restype = I
     lib.ragged_prefill_launch.argtypes = [
         I,                 # dtype code
         P, P, P, P, P, P,  # q, k, v, start, qlen, out

@@ -57,6 +57,14 @@
 // to -1e30 above the diagonal (both positions start at 0); p is rounded to
 // the input type before the PV product; output acc / max(l, 1e-30) in the
 // input type.  Any Sq and Skv.
+//
+// For training, the kernel also writes each row's log-sum-exp when the
+// caller passes an lse buffer (float32, (B, Hq, Sq) contiguous; null
+// writes none, as serving passes): lse = ln(sum_j exp(scale * q . k_j)) in
+// natural-log units, the unit flash_attention_bwd.cu and the plain
+// attention_ref_lse use.  The bf16 route keeps m and l in log2 units per
+// warpgroup and stores (M + log2 L) * ln 2 from the merged M and L of the
+// two warpgroups; rows past Sq write nothing.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,7 +110,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
                  MapAxes kax, MapAxes vax, bf16* __restrict__ out,
                  long long os_b, long long os_h, long long os_s, int Hq,
                  int Hkv, int Sq, int Skv, int causal, float scale_log2,
-                 int B, int pair_from) {
+                 int B, int pair_from, float* __restrict__ lse) {
   constexpr int NO = HD / 2;                 // O accumulators per thread
   constexpr int kTile = kRows * HD;          // elements of a 64-row tile
   constexpr int kTileBytes = kTile * 2;
@@ -287,7 +295,12 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
     const float M = fmaxf(m[r], m1);
     c0[r] = fast_exp2(m[r] - M);
     c1[r] = fast_exp2(m1 - M);
-    inv[r] = 1.f / fmaxf(c0[r] * l[r] + c1[r] * l1, 1e-30f);
+    const float Lsum = c0[r] * l[r] + c1[r] * l1;
+    inv[r] = 1.f / fmaxf(Lsum, 1e-30f);
+    // the four threads of a row hold the same M and L: one writes
+    if (lse != nullptr && (lane & 3) == 0 && qpos[r] < Sq)
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qpos[r]] =
+          (M + log2f(Lsum)) * 0.6931471805599453f;
   }
   bf16* ob = out + b * os_b + h * os_h;
 #pragma unroll
@@ -313,7 +326,8 @@ template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(4 * BQ)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int Hq,
-          int Hkv, int Sq, int Skv, Strides st, int causal, float scale) {
+          int Hkv, int Sq, int Skv, Strides st, int causal, float scale,
+          float* __restrict__ lse) {
   constexpr int kThreads = 4 * BQ;
   constexpr int DPT = HD / 4;                     // hd elements per thread
   __shared__ float k_s[BK][HD];
@@ -391,18 +405,20 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[i * 4 + quad] = acc[i] * inv;
+    if (lse != nullptr && quad == 0)
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qpos] = m + logf(l);
   }
 }
 
 template <int HD, int BQ, int BK>
 void launch_f32(const void* q, const void* k, const void* v, void* out,
                 int B, int Hq, int Hkv, int Sq, int Skv, const Strides& st,
-                int causal, float scale, cudaStream_t stream) {
+                int causal, float scale, float* lse, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_f32<HD, BQ, BK><<<grid, 4 * BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
-      Skv, st, causal, scale);
+      Skv, st, causal, scale, lse);
 }
 
 // ---------------------------------------------------------------- launch
@@ -411,7 +427,7 @@ template <int HD, int HDT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int Hq, int Hkv, int Sq, int Skv,
                         const Strides& st, int causal, float scale,
-                        cudaStream_t stream) {
+                        float* lse, cudaStream_t stream) {
   // align + Q + 2 warpgroups x kStages x (K, V)
   constexpr int kSmem = 1024 + (1 + 4 * kStages) * kRows * HD * 2;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -441,21 +457,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       <<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
       qm, km, vm, qa, ka, va, static_cast<bf16*>(out), st.o[0], st.o[1],
       st.o[2], Hq, Hkv, Sq, Skv, causal, scale * 1.4426950408889634f, B,
-      pair_from);
+      pair_from, lse);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; strides: 12 element strides, (batch, head,
-// seq) of q, k, v, out in that order.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take, or a
-// bf16 operand TMA cannot address).
+// seq) of q, k, v, out in that order; lse: null, or float32 (B, Hq, Sq)
+// contiguous for the rows' log-sum-exp.  Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for a shape the kernel does not take,
+// or a bf16 operand TMA cannot address).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int B, int Hq,
-                                      int Hkv, int Sq, int Skv, int hd,
-                                      const long long* strides, int causal,
-                                      float scale, void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int B, int Hq, int Hkv, int Sq, int Skv,
+                                      int hd, const long long* strides,
+                                      int causal, float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st;
@@ -469,22 +486,22 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   cudaError_t err = cudaSuccess;
   if (dtype == 0 && hd == 64)
     launch_f32<64, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                           scale, s);
+                           scale, lse, s);
   else if (dtype == 0 && hd == 80)
     launch_f32<80, 64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                           scale, s);
+                           scale, lse, s);
   else if (dtype == 0 && hd == 128)
     launch_f32<128, 64, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                            scale, s);
+                            scale, lse, s);
   else if (dtype == 1 && hd == 64)
     err = launch_bf16<64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st, causal,
-                              scale, s);
+                              scale, lse, s);
   else if (dtype == 1 && hd == 80)
     err = launch_bf16<128, 80>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                               causal, scale, s);
+                               causal, scale, lse, s);
   else if (dtype == 1 && hd == 128)
     err = launch_bf16<128, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, st,
-                                causal, scale, s);
+                                causal, scale, lse, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);

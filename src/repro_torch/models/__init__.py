@@ -6,9 +6,9 @@ and vlm.
 Every family module provides::
 
     init(cfg, generator, device) -> params (an nn.Module)
-    forward(cfg, p, batch)        -> full-sequence logits
-                                  (dense, audio and vlm; the MoE, SSM and
-                                  hybrid modules have none yet, ROADMAP A8)
+    forward(cfg, p, batch)        -> full-sequence logits, the training
+                                  compute (blocks rematerialized in the
+                                  backward)
     prefill(cfg, p, batch)        -> (last logits, cache)
     prefill_chunk(cfg, p, tokens, cache, start, qlen)
                                   -> (last live logits, cache)   in place
@@ -44,8 +44,7 @@ from . import jamba, mamba2, moe, sessions, transformer, vlm
 class Model:
     cfg: ModelConfig
     init: Callable                # (generator, device) -> params
-    forward: Callable             # (params, batch) -> logits (B, S, V);
-                                  # raises for a family without one
+    forward: Callable             # (params, batch) -> logits (B, S, V)
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode: Callable              # (params, token (B,1), pos, cache)
                                   # -> (logits (B,1,V), cache): one step,
@@ -68,14 +67,6 @@ class Model:
 
 _FAMILY = {"dense": transformer, "audio": transformer, "moe": moe,
            "ssm": mamba2, "hybrid": jamba, "vlm": vlm}
-
-
-def _no_forward(cfg: ModelConfig) -> Callable:
-    def forward(*args, **kwargs):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the full-sequence forward (the training "
-            f"compute) is not ported yet (ROADMAP A8)")
-    return forward
 
 
 def _fused_decode(cfg: ModelConfig, mod) -> Callable:
@@ -114,8 +105,7 @@ def get_model(cfg: ModelConfig) -> Model:
     # frames, not token ids, so it keeps the whole-sequence path
     chunkable = hasattr(mod, "prefill_chunk") and cfg.family != "audio"
     return Model(cfg=cfg, init=bind(mod.init),
-                 forward=(bind(mod.forward) if hasattr(mod, "forward")
-                          else _no_forward(cfg)),
+                 forward=bind(mod.forward),
                  prefill=bind(mod.prefill), decode=bind(mod.decode),
                  decode_fused=_fused_decode(cfg, mod),
                  prefill_chunk=bind(mod.prefill_chunk) if chunkable else None,

@@ -34,7 +34,12 @@ position ``i``, and is stacked back in that order.
 
 The port's modules carry the reference's names for their tensors and
 sub-modules, so :func:`params_to_numpy` reads a layer's tree off the
-module itself (:func:`_module_tree`).
+module itself (:func:`_module_tree`), and :func:`param_tree` /
+:func:`bind_params` carry a model to and from that tree on the device: the
+trainer keeps its float32 master weights and AdamW state in it, as the
+reference does.  :func:`train_state_from_numpy` and
+:func:`train_state_to_numpy` carry a whole training state across, so a
+JAX training checkpoint resumes in the port and the other way round.
 """
 
 from __future__ import annotations
@@ -43,8 +48,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..checkpoint.store import device_leaf, host_leaf
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..tree import tree_map
 from . import jamba, moe, vlm
 from . import layers as L
 from .mamba2 import SSM, SSMLayer
@@ -135,11 +142,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None
                        t(tree["head"]) if cfg.family == "audio" else None)
 
 
-def _module_tree(m: nn.Module) -> dict:
-    """A module's tensors and sub-modules as a nested dict under their
-    attribute names (an absent optional tensor is no key)."""
-    out = dict(m.named_parameters(recurse=False))
-    out.update({n: _module_tree(c) for n, c in m.named_children()})
+def _module_tree(m: nn.Module, leaf=lambda t: t) -> dict:
+    """A module's tensors (each through ``leaf``) and sub-modules as a
+    nested dict under their attribute names (an absent optional tensor is
+    no key)."""
+    out = {n: leaf(t) for n, t in m.named_parameters(recurse=False)}
+    out.update({n: _module_tree(c, leaf) for n, c in m.named_children()})
     return out
 
 
@@ -150,6 +158,64 @@ def _stacked(trees: list[dict]) -> dict:
             for k, v in trees[0].items()}
 
 
+def _groups(cfg: ModelConfig, model) -> dict:
+    """The reference tree's top-level keys, each with what it holds: a
+    module, a tensor, or a list (one stacked axis) of modules or of such
+    lists."""
+    out = {"tok": model.tok, "ln_f": model.ln_f}
+    if cfg.family == "hybrid":
+        out["attn_layers"] = [sb.attn_layer for sb in model.blocks]
+        for name in ("mamba_moe", "mamba_dense"):
+            out[name] = [list(getattr(sb, name)) for sb in model.blocks]
+    elif cfg.family == "vlm":
+        out["self_layers"] = [list(sb.self_layers) for sb in model.blocks]
+        out["cross_layers"] = [sb.cross for sb in model.blocks]
+    elif _alternating(cfg):
+        out["dense_layers"] = [list(sb.dense_layers) for sb in model.blocks]
+        out["moe_layers"] = [sb.moe_layer for sb in model.blocks]
+    else:
+        out["layers"] = list(model.layers)
+        if cfg.family == "audio":
+            out["head"] = model.head
+    return out
+
+
+def param_tree(cfg: ModelConfig, model, leaf=lambda t: t) -> dict:
+    """The reference's parameter tree of ``model``: ``leaf(parameter)`` at
+    every leaf, per-layer leaves stacked on the reference's layer axes
+    (new tensors: ``torch.stack`` copies)."""
+    def tree(x):
+        if isinstance(x, list):
+            return _stacked([tree(y) for y in x])
+        if isinstance(x, nn.Module):
+            return _module_tree(x, leaf)
+        return leaf(x)
+    return {k: tree(v) for k, v in _groups(cfg, model).items()}
+
+
+def bind_params(cfg: ModelConfig, model, tree: dict) -> None:
+    """Point every parameter of ``model`` at its slice of ``tree`` (the
+    reference's layout, the parameters' dtypes): afterwards the module's
+    tensors are views of the tree's, so writing the tree's leaves in place
+    updates the model, one copy a leaf for all its layers."""
+    def bind(x, sub):
+        if isinstance(x, list):
+            for i, y in enumerate(x):
+                bind(y, _take(sub, i))
+        elif isinstance(x, nn.Module):
+            for n, t in x.named_parameters(recurse=False):
+                bind(t, sub[n])
+            for n, c in x.named_children():
+                bind(c, sub[n])
+        else:
+            if sub.shape != x.shape or sub.dtype != x.dtype:
+                raise ValueError(f"cannot bind {tuple(sub.shape)} "
+                                 f"{sub.dtype} to {tuple(x.shape)} {x.dtype}")
+            x.data = sub
+    for k, v in _groups(cfg, model).items():
+        bind(v, tree[k])
+
+
 def params_to_numpy(cfg: ModelConfig,
                     model: Transformer | moe.AlternatingMoE | jamba.Jamba
                     | vlm.VLM) -> dict:
@@ -158,33 +224,29 @@ def params_to_numpy(cfg: ModelConfig,
     dtype widen exactly, so ``params_from_numpy`` of the result rebuilds
     the same tensors."""
     dt = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda t: t.to(dt).cpu().numpy(),
+                param_tree(cfg, model, lambda t: t.detach()))
 
-    def host(tree: dict) -> dict:
-        return {k: host(v) if isinstance(v, dict)
-                else v.detach().to(dt).cpu().numpy() for k, v in tree.items()}
 
-    out = {"tok": _module_tree(model.tok), "ln_f": _module_tree(model.ln_f)}
-    if cfg.family == "hybrid":
-        out["attn_layers"] = _stacked([_module_tree(sb.attn_layer)
-                                       for sb in model.blocks])
-        for name in ("mamba_moe", "mamba_dense"):
-            out[name] = _stacked([_stacked([_module_tree(lp) for lp in
-                                            getattr(sb, name)])
-                                  for sb in model.blocks])
-    elif cfg.family == "vlm":
-        out["self_layers"] = _stacked([_stacked([_module_tree(lp) for lp in
-                                                 sb.self_layers])
-                                       for sb in model.blocks])
-        out["cross_layers"] = _stacked([_module_tree(sb.cross)
-                                        for sb in model.blocks])
-    elif _alternating(cfg):
-        out["dense_layers"] = _stacked([_stacked([_module_tree(lp) for lp in
-                                                  sb.dense_layers])
-                                        for sb in model.blocks])
-        out["moe_layers"] = _stacked([_module_tree(sb.moe_layer)
-                                      for sb in model.blocks])
-    else:
-        out["layers"] = _stacked([_module_tree(lp) for lp in model.layers])
-        if cfg.family == "audio":
-            out["head"] = model.head
-    return host(out)
+# ---------------------------------------------------------------------------
+# training state: {"params", "opt": {"m", "v", "step"}, "ef"?}
+# ---------------------------------------------------------------------------
+
+def train_state_from_numpy(tree: dict, device=None) -> dict:
+    """The JAX package's training state (``train_state_init`` /
+    ``make_train_step``'s tree, leaves as numpy arrays or tensors) as the
+    port's: the same tree, every leaf a tensor on ``device`` (the card
+    unless the caller passes one) of its own dtype (``step`` int32, the
+    rest float32), bit for bit, in memory of its own."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        dtype, arr = host_leaf(a)
+        return device_leaf(dtype, np.array(arr), device)
+    return tree_map(leaf, tree)
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's training state as the JAX package's tree of numpy
+    arrays, bit for bit: its inverse."""
+    return tree_map(lambda t: host_leaf(t)[1], state)

@@ -138,6 +138,11 @@ def _mamba_full(cfg: ModelConfig, lp: MambaBlock, x):
     return x + lp.ffn(cfg, L.apply_norm(lp.ln2, x, cfg.norm)), state
 
 
+def _mamba(cfg: ModelConfig, lp: MambaBlock, x):
+    """A mamba layer without its state: the training forward's block."""
+    return _mamba_full(cfg, lp, x)[0]
+
+
 def _mamba_step(cfg: ModelConfig, lp: MambaBlock, x, ssm: torch.Tensor,
                 conv: torch.Tensor):
     """One decode step of a mamba layer; its state is written into
@@ -153,6 +158,21 @@ def _mamba_step(cfg: ModelConfig, lp: MambaBlock, x, ssm: torch.Tensor,
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, p: Jamba, batch: dict) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), the reference's ``forward``: every
+    superblock without a cache, each layer rematerialized in the backward
+    (the reference checkpoints the same blocks)."""
+    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    for sb in p.blocks:
+        x = L.remat(transformer._block, cfg, sb.attn_layer, x, positions,
+                    False)
+        for kind, i in ORDER:
+            x = L.remat(_mamba, cfg, sb.mamba(kind, i), x)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x)
+
 
 def prefill(cfg: ModelConfig, p: Jamba, batch: dict):
     """Whole prompts; returns (last-token logits (B, 1, V), the six-leaf

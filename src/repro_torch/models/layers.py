@@ -14,6 +14,11 @@ and the embedding are stored in the compute dtype; norm scales and biases
 stay float32, because the reference casts those to float32, not to the
 compute dtype.
 
+Training: parameters are frozen when built; :func:`set_trainable` turns
+gradients on for one model.  ``flash_attention`` carries its own gradient
+(the backward kernels on the card), so ``attention_apply`` is
+differentiable as it stands.
+
 Attention: whole-prompt prefill calls the ``flash_attention`` kernel where
 the reference runs its jnp ``blocked_attention`` (or ``_wrapped_causal``);
 both exist only to bound XLA's memory, so neither is ported.  Decode calls
@@ -29,6 +34,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
@@ -38,7 +44,29 @@ from ..kernels.ragged_prefill import ragged_prefill_attention
 
 
 def _weight(t: torch.Tensor) -> nn.Parameter:
+    """A parameter, frozen: serving builds no autograd graph.  The trainer
+    turns gradients on for its own model with :func:`set_trainable`."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def set_trainable(model: nn.Module) -> nn.Module:
+    """Turn ``requires_grad`` on for every parameter of ``model`` and
+    return it."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records, under activation
+    checkpointing (the reference's ``jax.checkpoint`` of a block): only
+    the block's inputs are kept, and its forward runs again in the
+    backward.  ``fn`` must be a module-level function of its arguments
+    alone, since it is called again later."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -114,9 +114,10 @@ def _ssd_chunked(cfg: ModelConfig, xh, dt, A, Bmat, Cmat):
     float32.  A prompt that is not a multiple of the chunk is padded with
     ``dt = 0``, an identity step (decay 1, no input), and ``y`` is cut back
     to ``S``.  Above the diagonal ``exp(cum_q - cum_k)`` has a positive
-    exponent and may overflow: ``torch.where`` replaces it by 0, as the
-    reference's ``jnp.where`` does, where a 0/1 mask would give
-    ``inf * 0 = nan``."""
+    exponent and may overflow, so the exponent is masked to ``-inf``
+    before the ``exp``: the same forward as the reference's ``jnp.where``
+    after it, and a finite gradient, where masking after the ``exp``
+    gives the backward ``inf * 0 = nan`` (as the reference's does)."""
     Bsz, S, nh, hp = xh.shape
     ds = Bmat.shape[-1]
     cl = min(cfg.ssm_chunk, S)
@@ -142,8 +143,8 @@ def _ssd_chunked(cfg: ModelConfig, xh, dt, A, Bmat, Cmat):
         xck, dtck, cumk = xc[:, c], dtc[:, c], cum[:, c]
         Bk, Ck = Bm[:, c], Cm[:, c]
         # intra-chunk quadratic form
-        Lmat = torch.where(tri, torch.exp(cumk[:, :, None, :]
-                                          - cumk[:, None, :, :]), 0.0)
+        Lmat = torch.exp(torch.where(tri, cumk[:, :, None, :]
+                                     - cumk[:, None, :, :], -torch.inf))
         scores = torch.einsum("bqs,bks->bqk", Ck, Bk)       # (B, cl, cl)
         att = scores[..., None] * Lmat                      # (B, q, k, nh)
         xdt = xck * dtck[..., None]                         # (B, cl, nh, hp)
@@ -242,6 +243,20 @@ def init(cfg: ModelConfig, generator: torch.Generator,
               for _ in range(cfg.n_layers)]
     return Transformer(tok, layers, L.norm_init(cfg.d_model, cfg.norm,
                                                 device))
+
+
+def _layer(cfg: ModelConfig, lp: SSMLayer, x: torch.Tensor) -> torch.Tensor:
+    return x + ssm_layer_full(cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm))[0]
+
+
+def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), the reference's ``forward``: every
+    layer from a zero state, rematerialized in the backward."""
+    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    for lp in p.layers:
+        x = L.remat(_layer, cfg, lp, x)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x)
 
 
 def prefill(cfg: ModelConfig, p: Transformer, batch: dict):

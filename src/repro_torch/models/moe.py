@@ -285,6 +285,22 @@ def _prefill_superblocks(cfg: ModelConfig, p: AlternatingMoE, batch: dict):
     return L.apply_norm(p.ln_f, x, cfg.norm), cache
 
 
+def forward(cfg: ModelConfig, p, batch: dict) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), the reference's ``forward``: the
+    layer stack without a cache, the MoE layers at the prefill capacity
+    (a copy can be dropped), each layer rematerialized in the backward."""
+    if cfg.moe_every == 1:
+        return transformer.forward(cfg, p, batch)
+    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    for sb in p.blocks:
+        for lp in sb.dense_layers:
+            x = L.remat(transformer._block, cfg, lp, x, positions)
+        x = L.remat(transformer._block, cfg, sb.moe_layer, x, positions)
+    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    return L.lm_head(cfg, p.tok, x)
+
+
 def prefill(cfg: ModelConfig, p, batch: dict):
     """Whole prompts; returns (last-token logits (B, 1, V), the cache at
     prompt length).  The MoE layers run at the reference's prefill

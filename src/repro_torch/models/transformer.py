@@ -16,9 +16,10 @@ The audio family reads precomputed frame embeddings (``batch["frames"]``,
 B, T, D) where the dense one embeds token ids; its attention is
 non-causal (``cfg.causal`` False) and it holds a ``head`` (D, vocab) that
 only ``forward`` applies: ``prefill`` takes ``lm_head`` on the last
-frame, as the reference does.  ``forward`` gives full-sequence logits
-(the reference's training compute, without its rematerialization); the
-training step itself is not ported yet (ROADMAP A8).
+frame, as the reference does.  ``forward`` gives full-sequence logits, the
+training compute (``repro_torch.train``): each block runs under
+``layers.remat``, the reference's ``jax.checkpoint``, so the backward runs
+its forward again (one more ``flash_attention`` launch a layer).
 """
 
 from __future__ import annotations
@@ -115,6 +116,11 @@ def _block_prefill(cfg: ModelConfig, lp: Block, x, positions,
     return x, (k, v)
 
 
+def _block(cfg: ModelConfig, lp: Block, x, positions, rope: bool = True):
+    """One layer without its K/V: the training forward's block."""
+    return _block_prefill(cfg, lp, x, positions, rope)[0]
+
+
 def _block_prefill_chunk(cfg: ModelConfig, lp: Block, x, kfull, vfull,
                          layer_idx: int, start, qlen, positions):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
@@ -145,12 +151,13 @@ def _inputs_to_x(cfg: ModelConfig, p: Transformer, batch: dict):
 
 
 def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V): ``lm_head`` for dense,
-    the ``head`` for audio.  No cache is kept."""
+    """Full-sequence forward -> logits (B, S, V): ``lm_head`` for dense
+    (and the MoE family's every-layer layout), the ``head`` for audio.  No
+    cache is kept; each block is rematerialized in the backward."""
     x = _inputs_to_x(cfg, p, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in p.layers:
-        x, _ = _block_prefill(cfg, lp, x, positions)
+        x = L.remat(_block, cfg, lp, x, positions)
     x = L.apply_norm(p.ln_f, x, cfg.norm)
     if cfg.family == "audio":
         return x @ p.head

@@ -240,14 +240,20 @@ def test_bf16_session_travels_bit_exact():
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
                                   "jamba-v0.1-52b"])
-def test_non_dense_families_raise_not_implemented(arch):
-    """The families whose full-sequence ``forward`` (the training compute)
-    is not ported yet: MoE, SSM and hybrid.  They serve; ``forward``
-    raises instead of being silently absent."""
-    tm = tget_model(tget_config(arch, reduced=True))
-    assert tm.prefill is not None and tm.decode_fused is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tm.forward(None, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
+def test_non_dense_forward_matches_jax(arch):
+    """The MoE, SSM and hybrid families' full-sequence ``forward`` (the
+    training compute) gives the JAX package's logits, with the reference's
+    weights carried over."""
+    jc, tc = _configs(arch)
+    jm, tm = get_model(jc), tget_model(tc)
+    params = jax.jit(lambda k: jm.init(k)[0])(jax.random.PRNGKey(0))
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, params), "cpu")
+    tokens = np.random.default_rng(5).integers(0, jc.vocab, (2, 12))
+    want = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        got = tm.forward(tp, {"tokens": torch.from_numpy(tokens)})
+    assert got.shape == want.shape
+    _close(got, want)
 
 
 def test_default_device_is_the_card(monkeypatch):
