@@ -2,7 +2,11 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, is right, and serves.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only flash_bwd]
+
+(``--only flash_bwd`` runs the device and build phases and the flash
+backward's cases alone, with a profile of its kernels, and prints no
+result line.)
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -27,7 +31,8 @@ Phases, in order; any failure exits non-zero before the last line:
              training shape (8 x 1024, 14/2, hd 64, causal), 17 and 1000
              tokens, 16/8, 32/8 at hd 128, the vlm's cross case (992 x
              1601, 64/8, non-causal), hubert's 16/16 at hd 80 and float32
-             at hd 64, 80 and 128, with the backward and forward +
+             at hd 64, 80 and 128, each backward called twice and the
+             two bitwise equal, with the backward and forward +
              backward timed against SDPA's;
              chunked prefill at the first and last chunks of a 2048-token
              prompt, B=4, rep 16 and hd 128 over B=8 mixed starts, and
@@ -51,7 +56,8 @@ Phases, in order; any failure exits non-zero before the last line:
              has a finite, nonzero gradient; then 20 steps with finite,
              falling losses (all printed) and exact launch counts (flash
              forward two a layer a step, a forward and the recompute of the
-             checkpointed block; the flash backward one a layer a step);
+             checkpointed block; the flash backward one a layer a step)
+             and no copy of dO on the way (``dout_copies`` 0);
              step p50, tokens/s, MFU against 989 TFLOP/s and peak memory;
              one 2 x 256 batch's loss and gradient norm against the port's
              own CPU run (float32, plain versions) within stated limits; 5
@@ -421,9 +427,12 @@ def flash_bwd_case(torch, F, fa, gen, peaks, flush, dt, S, causal, rel_tol,
     exp against ``attention_ref_lse``, and dq, dk, dv of the backward
     kernels (fed the kernel forward's output and LSE) against
     ``attention_ref_backward`` fed the plain forward's.  A gradient's
-    limit is ``rel_tol`` times its reference's largest magnitude.  Times:
+    limit is ``rel_tol`` times its reference's largest magnitude; a
+    second backward call on the same inputs must give bitwise-equal dq,
+    dk and dv (no float atomics, fixed summation order).  Times:
     the backward alone (kernel, plain, and SDPA's backward on a retained
-    graph) and forward + backward (the LSE forward and the backward
+    graph), the forward with the LSE against SDPA's forward in grad mode,
+    and forward + backward (the LSE forward and the backward
     kernels against SDPA's forward and ``autograd.grad``), each against
     its bound."""
     Sq, Skv = S, Skv or S
@@ -452,6 +461,11 @@ def flash_bwd_case(torch, F, fa, gen, peaks, flush, dt, S, causal, rel_tol,
         lim = rel_tol * r.float().abs().max().item()
         check(err <= lim, f"{label}: {name} max abs err {err} > {lim}")
         errs.append((name, err, lim))
+    again = fa.flash_attention_backward(q, k, v, out, dO, lse, causal=causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"{label}: two backward calls on the same inputs differ")
+    del again
     bwd = lambda: fa.flash_attention_backward(q, k, v, out, dO, lse,
                                               causal=causal)
     ms = time_ms(torch, bwd, flush)
@@ -474,6 +488,7 @@ def flash_bwd_case(torch, F, fa, gen, peaks, flush, dt, S, causal, rel_tol,
     doc = dO.contiguous()
     sdpa = lambda: F.scaled_dot_product_attention(
         qc, kc, vc, is_causal=causal, enable_gqa=True)
+    lib_fwd_ms = time_ms(torch, sdpa, flush)    # grad mode, as training
     kept = sdpa()
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         kept, (qc, kc, vc), doc, retain_graph=True), flush)
@@ -497,20 +512,21 @@ def flash_bwd_case(torch, F, fa, gen, peaks, flush, dt, S, causal, rel_tol,
     print(f"[kernel] {label}: lse max_abs_err={lse_err:.3g} (limit "
           f"{lse_tol}); "
           + ", ".join(f"{n} {e:.3g} (limit {lim:.3g})" for n, e, lim in errs)
-          + f"; backward ms={ms:.4f} "
+          + f", a second call bitwise equal; backward ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
           f"bound_ms={bms:.5f} ({by}) kernel/library={ms / lib_ms:.2f}; "
           f"forward+backward ms={fwd_bwd_ms:.4f} library_ms="
           f"{lib_fwd_bwd_ms:.4f} bound_ms={fb_bms:.5f} ({fb_by}) "
           f"kernel/library={fwd_bwd_ms / lib_fwd_bwd_ms:.2f}; forward "
           f"ms={fwd_ms:.4f}, with the LSE {fwd_lse_ms:.4f} (plain "
-          f"{plain_fwd_ms:.4f}, bound_ms={f_bms:.5f} ({f_by}))")
+          f"{plain_fwd_ms:.4f}, library_ms={lib_fwd_ms:.4f}, bound_ms="
+          f"{f_bms:.5f} ({f_by}))")
     return dict(max_abs_err=max(e for _, e, _ in errs),
                 lse_err=lse_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, fwd_bwd_ms=fwd_bwd_ms,
                 lib_fwd_bwd_ms=lib_fwd_bwd_ms, fwd_bwd_bound_ms=fb_bms,
                 fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
-                plain_fwd_ms=plain_fwd_ms)
+                plain_fwd_ms=plain_fwd_ms, lib_fwd_ms=lib_fwd_ms)
 
 
 # the backward's limits, relative to each gradient's largest magnitude:
@@ -543,6 +559,37 @@ def flash_bwd_cases(torch, F, fa, gen, peaks, flush):
             case(f32, 333, True, **f),
             case(f32, 100, False, Skv=300, Hq=16, Hkv=16, hd=80, **f),
             case(f32, 200, True, Hq=32, Hkv=8, hd=128, **f)]
+
+
+def phase_flash_bwd(torch, seed, peaks, card):
+    """``--only flash_bwd``: the backward's cases of the kernel phase
+    alone, then one profiled window of three backward calls at the
+    training shape and at each bf16 case where the backward loses to
+    SDPA's, which splits its device time by kernel (stats pass, dQ, dK /
+    dV).  Prints no result line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    flash_bwd_cases(torch, F, fa, gen, peaks, flush)
+    # (B, Sq, Skv, Hq, Hkv, hd, causal)
+    for B, Sq, Skv, Hq, Hkv, hd, causal in (
+            (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, True),
+            (2, 1000, 1000, 14, 2, 64, True),
+            (1, 992, VLM_IMAGE_TOKENS, 64, 8, 128, False),
+            (8, 1000, 1000, 16, 16, 80, False)):
+        mk = lambda s, h: torch.randn(B, s, h, hd, generator=gen,
+                                      device="cuda").to(torch.bfloat16)
+        q, k, v, dO = (t.transpose(1, 2) for t in (
+            mk(Sq, Hq), mk(Skv, Hkv), mk(Skv, Hkv), mk(Sq, Hq)))
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                              lse=True)
+        fa.flash_attention_backward(q, k, v, out, dO, lse, causal=causal)
+        _profile_window(torch, lambda: [fa.flash_attention_backward(
+            q, k, v, out, dO, lse, causal=causal) for _ in range(3)],
+            f"3 flash backward calls, B={B} Sq={Sq} Skv={Skv} {Hq}/{Hkv}, "
+            f"hd {hd}, causal={causal}", card)
 
 
 def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
@@ -1080,13 +1127,16 @@ def phase_train(torch, seed, card):
     torch.cuda.empty_cache()
 
     def counted(argv, steps, layers):
-        fa.launches = fa.bwd_launches = 0
+        fa.launches = fa.bwd_launches = fa.dout_copies = 0
         out = launch.run(argv)
         torch.cuda.synchronize()
         got = (fa.launches, fa.bwd_launches)
         check(got == (2 * layers * steps, layers * steps),
               f"train {argv[1]}: launches {got}, expected "
               f"{(2 * layers * steps, layers * steps)}")
+        check(fa.dout_copies == 0, f"train {argv[1]}: {fa.dout_copies} "
+              f"copies of dO: the model's layout reaches the backward as "
+              f"TMA cannot read it")
         return out, got
 
     # one step: every parameter has a gradient (a cut graph leaves none)
@@ -3166,8 +3216,8 @@ PROFILE_GROUPS = {"ragged_decode": ("decode_split_", "decode_combine"),
                   "ragged_prefill": ("prefill_bf16_wgmma", "prefill_merge"),
                   "bitonic_sort": ("sort_cluster", "global_step"),
                   "matmul": ("matmul_kernel",),
-                  "flash_attention_bwd": ("bwd_dkdv_", "bwd_dq_",
-                                          "bwd_dot")}
+                  "flash_attention_bwd": ("bwd_stats_", "bwd_dq_",
+                                          "bwd_dkdv_", "bwd_dot")}
 
 
 def _profile_window(torch, fn, label: str, card: str, top: int = 8,
@@ -3271,6 +3321,9 @@ def phase_profile(torch, np, model, params, reqs, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("flash_bwd",),
+                    help="run the device and build phases and this part "
+                         "alone, and print no result line")
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
@@ -3292,6 +3345,9 @@ def main() -> int:
         _build.library()
         print(f"[build] {len(_build.sources())} sources -> "
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
+        if args.only == "flash_bwd":
+            phase_flash_bwd(torch, args.seed, peaks, card)
+            return 0
         stats = phase_kernels(torch, args.seed, peaks)
         train = phase_train(torch, args.seed, card)
         from repro_torch.kernels.stream_copy import ops as sc

@@ -1,8 +1,8 @@
 // Helpers shared by the port's Hopper (sm_90a) kernels: cp.async,
 // ldmatrix and mma.sync (the warp-level tensor-core path), mbarriers, TMA
-// tile loads and wgmma (the warpgroup-level one), the exp2 of the online
-// softmax, and on the host the tensor maps that TMA reads through.  The
-// kernels include it by name (the build adds this directory with -I).
+// tile and bulk loads and wgmma (the warpgroup-level one), the exp2 of the
+// online softmax, and on the host the tensor maps that TMA reads through.
+// The kernels include it by name (the build adds this directory with -I).
 
 #pragma once
 
@@ -134,6 +134,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes into shared memory (both addresses and the size
+// multiples of 16); completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -13,37 +13,80 @@
 //   P  = exp(scale * q k^T - lse)                (recomputed, never stored)
 //   dV = P^T dO;  dP = dO v^T;  dS = P * (dP - D)
 //   dQ = scale * dS k;  dK = scale * dS^T q
-// in three launches:
-//   * bwd_dot: D, one warp per row;
-//   * dK / dV: one block per (64-key tile, kv head, batch).  It loops over
-//     the group's rep query heads and over the query tiles that see its
-//     keys (causal: from the tile holding query k0 on), so the GQA sum over
-//     the group stays inside the block: no float atomics, and the
-//     gradient is deterministic;
-//   * dQ: one block per (64-query tile, query head, batch), looping over
-//     the key tiles it sees.
-// What bounds it on the H100: operations.  Five products of the forward's
-// shape (S^T and dP^T, dV, dK in the first kernel, S, dP and dQ in the
-// second: seven products done where five are needed, the price of keeping
-// atomics out) against one read of q, k, v, o, dO and one write of dq, dk,
-// dv: at qwen2-0.5b's training shape (B 8, S 1024, 14/2 heads, hd 64,
-// causal) 37.6 GFLOP against 68 MB.
 //
-// This first version is simple and right rather than fast: bf16 operands
-// go through mma.sync m16n8k16 (sm90.cuh) from padded shared-memory tiles
-// (row stride hd + 8 elements: ldmatrix reads no bank twice), filled by
-// cp.async in a two-stage ring, f32 accumulation, P and dS rounded to bf16
-// as the products' A operands straight from the accumulator fragments, and
-// the gradients written in the input type.  wgmma and TMA, as the forward
-// has them, are later work.  float32 keeps CUDA-core kernels (no f32
-// tensor cores without TF32).
+// What bounds it on the H100: operations.  Seven products of 2 * hd
+// operations per (query head, visible pair): S^T, dP^T, dV and dK in the
+// dK / dV kernel, S, dP and dQ in the dQ kernel (five are needed; the two
+// recomputed ones are the price of keeping float atomics out, so the
+// gradient is bitwise deterministic), against one read of q, k, v, o, dO
+// and one write of dq, dk, dv.  At qwen2-0.5b's training shape (B 8, S
+// 1024, 14/2 heads, hd 64, causal) the five needed products are 37.6
+// GFLOP against 68 MB: a bound of ~0.038 ms.
+//
+// The bf16 route, built like the forward (wgmma from TMA-filled tiles):
+//   * three launches: a stats pass, dQ, then dK / dV.  The stats pass
+//     writes, per 64-query tile of a (batch, head), one 512-byte block:
+//     the rows' lse in log2 units and D = rowsum(dO * o), zeros past Sq.
+//     It reads o and dO with 16-byte loads, eight threads to a row (D at
+//     the memory rate rather than 2 bytes a lane);
+//   * every tile moves by TMA: Q, K, V and dO through 4-D tensor maps over
+//     the operands' (batch, head, seq) strides (the model's transposed
+//     (B, S, H, hd) views are read in place, no copy), 128-byte swizzled,
+//     ragged tiles zero-filled; a stats block by one bulk copy on the same
+//     mbarrier.  One elected thread per warpgroup issues the next tile one
+//     item ahead of the math, into a two-stage ring; no thread computes an
+//     address for a copy.  (Four stages measured no faster in dK / dV, and
+//     slower in dQ, whose 81 KB at hd 64 let two blocks share an SM.  A
+//     software pipeline of dK / dV, item i + 1's S^T and dP^T issued ahead
+//     of item i's dV and dK, measured slower too: 0.126 against 0.105 ms
+//     a call at the training shape);
+//   * every product is a wgmma, with f32 accumulators.  dK / dV: keys are
+//     wgmma's M, so S^T = K Q^T and dP^T = V dO^T (shared x shared,
+//     K-major) leave P^T and dS^T in accumulator layout, rounded to bf16
+//     in registers as the A operands of dV += P^T dO and dK += dS^T Q
+//     (dO and Q the MN-major B operands, as V is in the forward's P V).
+//     lse and D are indexed by the accumulator's column (the query), so
+//     they come from the stats block in shared memory.  dQ: S = Q K^T and
+//     dP = dO V^T, then dQ += dS K (K the MN-major B); each row's lse and
+//     D sit in registers.  The S product's completion is awaited before
+//     dP's, so exp2 overlaps the second product;
+//   * the grid: a dK / dV block owns one 64-key tile of one kv head and
+//     loops over the GQA group's query heads and the query tiles that see
+//     its keys (the GQA sum stays in the block: no atomics).  At the
+//     training shape that is 256 blocks, one per SM at a time (the
+//     accumulators need ~200 registers a thread).  Each block holds two
+//     warpgroups (256 threads) that take alternate items, so its serial
+//     chain is halved; blocks are issued heaviest first (key tile 0 sees
+//     every query tile under the causal mask, the last one its own), so
+//     the lighter tiles fill in behind: the busiest SM does ~1.03x the
+//     mean.  A dQ block owns a 64-query tile of one query head (1792 at
+//     the training shape), heaviest first, its two warpgroups taking
+//     alternate key tiles as the forward's do;
+//   * determinism: every sum runs in a fixed order.  Each warpgroup
+//     accumulates its own items in order; the two merge through shared
+//     memory (warpgroup 0's plus warpgroup 1's) before the store.  No
+//     float atomics anywhere, so two calls give bitwise-equal dq, dk, dv;
+//   * only the causal diagonal tile and the ragged last tiles are masked;
+//     tiles above the diagonal are never loaded;
+//   * hd 80 (hubert-xlarge) runs the hd-128 instantiation with the tensor
+//     maps' inner extent 80, as the forward does: TMA zero-fills columns
+//     80-127, which leaves the S and dP products unchanged (they stop
+//     after the fifth k16 step); the dV, dK and dQ products compute 128
+//     columns, 48 of them zero, and only 80 are written;
+//   * shared memory: two 64-row tiles kept (K, V or Q, dO) and two rings
+//     of two stages of two tiles: 83 KB at hd 64, 163 KB at hd 128.
+// float32 keeps CUDA-core kernels (below) and a scalar D pass: there are
+// no f32 tensor cores without TF32, and float32 is not on the training
+// path, which computes in bf16.
 //
 // Layout: every operand is (batch, head, seq, hd) addressed through its
-// (batch, head, seq) element strides with hd contiguous; bf16 rows must be
-// 16-byte aligned (the wrapper checks).  lse and D are float32 (B, Hq, Sq)
-// contiguous.  Query head h reads kv head h / rep; causal positions start
-// at 0 on both sides; any Sq and Skv; hd 64, 80 and 128.
+// (batch, head, seq) element strides with hd contiguous; bf16 operands
+// need 16-byte aligned bases and strides (TMA; the wrapper checks).  lse
+// is float32 (B, Hq, Sq) contiguous.  Query head h reads kv head h / rep;
+// causal positions start at 0 on both sides; any Sq and Skv; hd 64, 80
+// and 128.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,399 +102,506 @@ struct Strides {
   long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// ------------------------------------------------------------------ bf16
 
-// ------------------------------------------------------------------ D pass
-// D[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d], one warp per row.
-template <typename T>
+constexpr int kRows = 64;              // queries or keys a tile
+constexpr int kBox = sm90::kBoxElems;  // elements of one 64 x 64 TMA box
+constexpr int kStages = 2;             // ring depth per warpgroup
+constexpr int kStat = 2 * kRows;       // floats of a stats block: lse, D
+
+using sm90::fast_exp2;
+using sm90::load_tile;
+using sm90::MapAxes;
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc += __uint_as_float(x[i] << 16) * __uint_as_float(y[i] << 16);
+    acc += __uint_as_float(x[i] & 0xffff0000u) *
+           __uint_as_float(y[i] & 0xffff0000u);
+  }
+  return acc;
+}
+
+// The stats pass.  For query tile t of (batch b, query head h), one block
+// of 128 floats at stats + ((b * Hq + h) * n_qt + t) * 128: the rows' lse
+// in log2 units, then D = rowsum(dO * o); rows past Sq hold zeros.  Eight
+// threads a row, 16-byte loads; grid rows / 32, 256 threads.
 __global__ void __launch_bounds__(256)
-bwd_dot(const T* __restrict__ o, const T* __restrict__ dO,
+bwd_stats_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+               const float* __restrict__ lse, float* __restrict__ stats,
+               int Hq, int Sq, int n_qt, int hd, Strides st) {
+  const long long row = blockIdx.x * 32LL + (threadIdx.x >> 3);
+  const int part = threadIdx.x & 7;
+  const long long bh = row / (n_qt * kRows);
+  const int i = static_cast<int>(row % (n_qt * kRows));
+  const int b = static_cast<int>(bh / Hq), h = static_cast<int>(bh % Hq);
+  float acc = 0.f;
+  if (i < Sq) {
+    const bf16* orow = o + b * st.o[0] + h * st.o[1] + i * st.o[2];
+    const bf16* drow = dO + b * st.dO[0] + h * st.dO[1] + i * st.dO[2];
+    for (int c = part; c < hd / 8; c += 8)
+      acc += dot8(*reinterpret_cast<const uint4*>(orow + 8 * c),
+                  *reinterpret_cast<const uint4*>(drow + 8 * c));
+  }
+  acc += __shfl_xor_sync(~0u, acc, 1);
+  acc += __shfl_xor_sync(~0u, acc, 2);
+  acc += __shfl_xor_sync(~0u, acc, 4);
+  if (part == 0) {
+    float* dst = stats + (bh * n_qt + i / kRows) * kStat + i % kRows;
+    dst[0] = i < Sq ? lse[bh * Sq + i] * kLog2e : 0.f;
+    dst[kRows] = acc;
+  }
+}
+
+// HD is the staged width (64 or 128), HDT <= HD the true head width (the
+// tensor maps' inner extent; columns past it arrive zero and are not
+// written).  Fragment of a 64 x N wgmma accumulator: element 4j + 2r + e
+// of a thread of warp w is row 16w + lane / 4 + 8r, column 8j +
+// 2 (lane % 4) + e.
+
+// d (64 x 64) = A B^T over HDT, A and B 64-row tiles in shared memory
+// (K-major): S = Q K^T and its kin.
+template <int HDT>
+__device__ __forceinline__ void ss_product(float (&d)[32], const bf16* a,
+                                           const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < HDT / 16; ++kk) {
+    const int off = (kk / 4) * kBox + (kk % 4) * 16;
+    sm90::wgmma_ss_m64n64k16(d, sm90::wgmma_desc_sw128(a + off, 16, 1024),
+                             sm90::wgmma_desc_sw128(b + off, 16, 1024),
+                             kk > 0);
+  }
+}
+
+// acc (64 x HD) += A (64 x 64, bf16 A fragments) * tile (64 rows of HD,
+// shared, MN-major): the O += P V shape
+template <int HD>
+__device__ __forceinline__ void rs_product(float (&acc)[HD / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const bf16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // rows kk*16.. of the tile (K of the product), hd the MN dim: 8-row
+    // groups 1024 B apart, the two 64-wide halves of hd 128 one box apart
+    const uint64_t desc =
+        sm90::wgmma_desc_sw128(tile + kk * 16 * 64, kBox * 2, 1024);
+    if constexpr (HD == 64)
+      sm90::wgmma_rs_m64n64k16(acc, a[kk], desc, 1);
+    else
+      sm90::wgmma_rs_m64n128k16(acc, a[kk], desc, 1);
+  }
+}
+
+// a 64 x 64 accumulator fragment rounded to bf16 as wgmma's A operand,
+// 16 columns (the next product's K) per step
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
+                                     const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = sm90::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sm90::reg_fence(x[i]);
+}
+
+// Two warpgroups' 64 x HD partial sums merged in a fixed order (warpgroup
+// 0's plus warpgroup 1's, through `x`, HD / 2 * 128 floats of shared
+// memory that no copy writes any more), times `mul`, into bf16 rows at
+// base + row * rs; rows >= live and columns >= HDT are not written.
+// Called by both warpgroups after a __syncthreads.
+template <int HD, int HDT>
+__device__ __forceinline__ void merge_store(const float (&acc)[HD / 2],
+                                            float* x, int wg, int wtid,
+                                            bf16* base, long long rs,
+                                            int live, float mul) {
+  if (wg == 1)
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) x[j * 128 + wtid] = acc[j];
+  __syncthreads();
+  if (wg == 0) {
+    const int lane = wtid & 31, r_lo = (wtid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + 8 * r;
+      if (row >= live) continue;
+      bf16* out = base + row * rs + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < HDT / 8; ++j) {
+        const int a = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn((acc[a] + x[a * 128 + wtid]) * mul,
+                                  (acc[a + 1] + x[(a + 1) * 128 + wtid]) *
+                                      mul);
+      }
+    }
+  }
+}
+
+// dQ.  Grid (ceil(Sq / 64) * Hq * B), 256 threads, heaviest query tiles
+// first: the forward's shape.  Q and dO tiles once; two warpgroups take
+// alternate key tiles, each through its own TMA ring of K / V, with S =
+// Q K^T and dP = dO V^T shared x shared, dS = P (dP - D) rounded to bf16
+// in registers and dQ += dS K (K the MN-major B), then merge.
+template <int HD, int HDT>
+__global__ void __launch_bounds__(256, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap dmap, MapAxes qax,
+             MapAxes kax, MapAxes vax, MapAxes dax,
+             const float* __restrict__ stats, bf16* __restrict__ dq,
+             long long ds_b, long long ds_h, long long ds_s, int Hq, int Hkv,
+             int Sq, int Skv, int B, int causal, float scale,
+             float scale_log2) {
+  constexpr int kTile = kRows * HD;
+  constexpr int kTileBytes = kTile * 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_kv[2][kStages];
+  bf16* q_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* do_s = q_s + kTile;
+  bf16* kv_s = do_s + kTile;                 // [wg][stage][K, V][tile]
+  auto stage_s = [&](int w, int i) {
+    return kv_s + (w * kStages + i % kStages) * 2 * kTile;
+  };
+
+  const int n_q = (Sq + kRows - 1) / kRows;
+  const int qi = n_q - 1 - static_cast<int>(blockIdx.x / (Hq * B));
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq % B;
+  const int g = h / (Hq / Hkv);
+  const int q0 = qi * kRows;
+  const int k_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int n_tiles = (k_end + kRows - 1) / kRows;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int lane = tid & 31, warp = wtid >> 5;
+  const int n_mine = (n_tiles - wg + 1) / 2;  // tiles wg, wg + 2, ...
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_q, 1);
+    for (int i = 0; i < 2 * kStages; ++i)
+      sm90::mbar_init(&bar_kv[i / kStages][i % kStages], 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_kv = [&](int i) {
+    uint64_t* bar = &bar_kv[wg][i % kStages];
+    bf16* dst = stage_s(wg, i);
+    const int t = wg + 2 * i;
+    sm90::mbar_expect_tx(bar, 2 * kTileBytes);
+    load_tile<HD>(dst, &kmap, kax, bar, t * kRows, g, b);
+    load_tile<HD>(dst + kTile, &vmap, vax, bar, t * kRows, g, b);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_q, 2 * kTileBytes);
+    load_tile<HD>(q_s, &qmap, qax, &bar_q, q0, h, b);
+    load_tile<HD>(do_s, &dmap, dax, &bar_q, q0, h, b);
+  }
+  if (wtid == 0 && n_mine > 0) load_kv(0);
+
+  const int r_lo = warp * 16 + (lane >> 2);  // fragment rows r_lo, r_lo + 8
+  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
+  const float* st_q = stats + ((static_cast<long long>(b) * Hq + h) * n_q +
+                               qi) * kStat;
+  const float l2[2] = {st_q[r_lo], st_q[r_lo + 8]};
+  const float Dr[2] = {st_q[kRows + r_lo], st_q[kRows + r_lo + 8]};
+
+  float acc[HD / 2];
+  zero_regs(acc);
+  float s[32], dp[32];
+  sm90::mbar_wait(&bar_q, 0);
+
+  for (int i = 0; i < n_mine; ++i) {
+    // the stage of tile i + 1 was freed at the end of tile i - 1
+    if (wtid == 0 && i + 1 < n_mine) load_kv(i + 1);
+    sm90::mbar_wait(&bar_kv[wg][i % kStages], (i / kStages) & 1);
+    const bf16* kt = stage_s(wg, i);
+    const bf16* vt = kt + kTile;
+    zero_regs(s);                            // overwritten: not live across
+    zero_regs(dp);
+    sm90::wgmma_fence();
+    ss_product<HDT>(s, q_s, kt);
+    sm90::wgmma_commit();
+    ss_product<HDT>(dp, do_s, vt);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    fence_regs(s);
+    // P = exp2(S scale log2(e) - lse2), zero where masked
+    const int k0 = (wg + 2 * i) * kRows;
+    const bool masked = k0 + kRows > Skv || (causal && k0 + kRows - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int r = x >> 1, kpos = k0 + 8 * j + 2 * (lane & 3) + (x & 1);
+        float& p = s[4 * j + x];
+        p = fast_exp2(fmaf(p, scale_log2, -l2[r]));
+        if (masked && (kpos >= Skv || (causal && kpos > qpos[r]))) p = 0.f;
+      }
+    sm90::wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - D)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) dp[j] = s[j] * (dp[j] - Dr[(j >> 1) & 1]);
+    uint32_t dsa[4][4];
+    to_a(dsa, dp);
+    // dQ += dS K
+    fence_regs(acc);
+    sm90::wgmma_fence();
+    rs_product<HD>(acc, dsa, kt);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs(acc);
+    // this warpgroup's stage is free again
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  __syncthreads();                           // every tile has been read
+  merge_store<HD, HDT>(acc, reinterpret_cast<float*>(kv_s), wg, wtid,
+                       dq + b * ds_b + h * ds_h + q0 * ds_s, ds_s, Sq - q0,
+                       scale);
+}
+
+// dK / dV.  Grid (ceil(Skv / 64) * Hkv * B), 256 threads, key tile 0 (the
+// heaviest under the causal mask) first.  A block owns one 64-key tile of
+// one kv head: K and V once, then the (query head of the GQA group, query
+// tile) items that see its keys, alternately to two warpgroups, each
+// through its own TMA ring of Q, dO and the stats block.  Keys are
+// wgmma's M: S^T = K Q^T and dP^T = V dO^T shared x shared, so P^T and
+// dS^T come out in accumulator layout and are the register A operands of
+// dV += P^T dO and dK += dS^T Q (dO and Q the MN-major B).  The GQA sum
+// stays in the block; the warpgroups merge in a fixed order.
+template <int HD, int HDT>
+__global__ void __launch_bounds__(256, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap dmap, MapAxes qax,
+               MapAxes kax, MapAxes vax, MapAxes dax,
+               const float* __restrict__ stats, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, long long dks_b, long long dks_h,
+               long long dks_s, long long dvs_b, long long dvs_h,
+               long long dvs_s, int Hq, int Hkv, int Sq, int Skv, int B,
+               int causal, float scale, float scale_log2) {
+  constexpr int kTile = kRows * HD;
+  constexpr int kTileBytes = kTile * 2;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_it[2][kStages];
+  bf16* k_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* v_s = k_s + kTile;
+  bf16* ring = v_s + kTile;                  // [wg][stage][Q, dO][tile]
+  float* st_ring = reinterpret_cast<float*>(ring + 2 * kStages * 2 * kTile);
+  auto stage_s = [&](int w, int i) {
+    return ring + (w * kStages + i % kStages) * 2 * kTile;
+  };
+  auto stage_st = [&](int w, int i) {
+    return st_ring + (w * kStages + i % kStages) * kStat;
+  };
+
+  const int kt_i = static_cast<int>(blockIdx.x / (Hkv * B));
+  const int g = blockIdx.x % Hkv, b = blockIdx.x / Hkv % B;
+  const int k0 = kt_i * kRows;
+  const int rep = Hq / Hkv;
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int qt0 = causal ? min(kt_i, n_qt) : 0;  // first query tile seeing k0
+  const int per_head = n_qt - qt0;
+  const int n_items = rep * per_head;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int lane = tid & 31, warp = wtid >> 5;
+  const int n_mine = (n_items - wg + 1) / 2;  // items wg, wg + 2, ...
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_kv, 1);
+    for (int i = 0; i < 2 * kStages; ++i)
+      sm90::mbar_init(&bar_it[i / kStages][i % kStages], 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  // this warpgroup's i-th item into its stage i % kStages
+  auto load_item = [&](int i) {
+    const int it = wg + 2 * i;
+    const int h = g * rep + it / per_head, qt = qt0 + it % per_head;
+    uint64_t* bar = &bar_it[wg][i % kStages];
+    bf16* dst = stage_s(wg, i);
+    sm90::mbar_expect_tx(bar, 2 * kTileBytes + kStat * 4);
+    load_tile<HD>(dst, &qmap, qax, bar, qt * kRows, h, b);
+    load_tile<HD>(dst + kTile, &dmap, dax, bar, qt * kRows, h, b);
+    sm90::bulk_load(stage_st(wg, i),
+                    stats + ((static_cast<long long>(b) * Hq + h) * n_qt +
+                             qt) * kStat,
+                    kStat * 4, bar);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_kv, 2 * kTileBytes);
+    load_tile<HD>(k_s, &kmap, kax, &bar_kv, k0, g, b);
+    load_tile<HD>(v_s, &vmap, vax, &bar_kv, k0, g, b);
+  }
+  if (wtid == 0 && n_mine > 0) load_item(0);
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+  zero_regs(dk_acc);
+  zero_regs(dv_acc);
+  float s[32], dp[32];
+  const int key_lo = k0 + warp * 16 + (lane >> 2);   // keys key_lo, + 8
+  sm90::mbar_wait(&bar_kv, 0);
+
+  for (int i = 0; i < n_mine; ++i) {
+    if (wtid == 0 && i + 1 < n_mine) load_item(i + 1);
+    sm90::mbar_wait(&bar_it[wg][i % kStages], (i / kStages) & 1);
+    const bf16* qt = stage_s(wg, i);
+    const bf16* dot = qt + kTile;
+    const float* l2 = stage_st(wg, i);       // lse in log2 units, then D
+    const int q0 = (qt0 + (wg + 2 * i) % per_head) * kRows;
+    zero_regs(s);                            // overwritten: not live across
+    zero_regs(dp);                           // the dK / dV products
+    sm90::wgmma_fence();
+    ss_product<HDT>(s, k_s, qt);             // S^T = K Q^T
+    sm90::wgmma_commit();
+    ss_product<HDT>(dp, v_s, dot);           // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    fence_regs(s);
+    // P^T: the column is the query, so lse and D come per column
+    const bool masked = q0 + kRows > Sq || (causal && q0 < k0 + kRows);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 l = *reinterpret_cast<const float2*>(l2 + c);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int qpos = q0 + c + (x & 1);
+        const int key = key_lo + 8 * (x >> 1);
+        float& p = s[4 * j + x];
+        p = fast_exp2(fmaf(p, scale_log2, -((x & 1) ? l.y : l.x)));
+        if (masked && (qpos >= Sq || (causal && key > qpos))) p = 0.f;
+      }
+    }
+    sm90::wgmma_wait<0>();
+    fence_regs(dp);
+    // dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d =
+          *reinterpret_cast<const float2*>(l2 + kRows + 8 * j +
+                                           2 * (lane & 3));
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        dp[4 * j + x] = s[4 * j + x] * (dp[4 * j + x] - ((x & 1) ? d.y : d.x));
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a(pa, s);
+    to_a(dsa, dp);
+    // dV += P^T dO, dK += dS^T Q
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    sm90::wgmma_fence();
+    rs_product<HD>(dv_acc, pa, dot);
+    rs_product<HD>(dk_acc, dsa, qt);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    // this warpgroup's stage is free again
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  __syncthreads();                           // every tile has been read
+  float* x = reinterpret_cast<float*>(ring);
+  merge_store<HD, HDT>(dv_acc, x, wg, wtid,
+                       dv + b * dvs_b + g * dvs_h + k0 * dvs_s, dvs_s,
+                       Skv - k0, 1.f);
+  __syncthreads();                           // x is read before reuse
+  merge_store<HD, HDT>(dk_acc, x, wg, wtid,
+                       dk + b * dks_b + g * dks_h + k0 * dks_s, dks_s,
+                       Skv - k0, scale);
+}
+
+template <int HD, int HDT>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* dO, const float* lse,
+                        float* stats, void* dq, void* dk, void* dv, int B,
+                        int Hq, int Hkv, int Sq, int Skv, const Strides& st,
+                        int causal, float scale, cudaStream_t s) {
+  constexpr int kTileBytes = kRows * HD * 2;
+  // align + Q + dO + 2 warpgroups x kStages x (K, V)
+  constexpr int kSmemQ = 1024 + (2 + 4 * kStages) * kTileBytes;
+  // align + K + V + 2 warpgroups x kStages x (Q, dO, stats)
+  constexpr int kSmemKV = 1024 + (2 + 4 * kStages) * kTileBytes +
+                          2 * kStages * kStat * 4;
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      bwd_dq_wgmma<HD, HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemQ);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      bwd_dkdv_wgmma<HD, HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemKV);
+  if (a1 != cudaSuccess) return a1;
+  if (a2 != cudaSuccess) return a2;
+  CUtensorMap qm, km, vm, dm;
+  MapAxes qa, ka, va, da;
+  if (!sm90::make_map(&qm, &qa, q, B, Hq, Sq, HDT, st.q) ||
+      !sm90::make_map(&km, &ka, k, B, Hkv, Skv, HDT, st.k) ||
+      !sm90::make_map(&vm, &va, v, B, Hkv, Skv, HDT, st.v) ||
+      !sm90::make_map(&dm, &da, dO, B, Hq, Sq, HDT, st.dO))
+    return cudaErrorInvalidValue;
+  const int n_q = (Sq + kRows - 1) / kRows, n_k = (Skv + kRows - 1) / kRows;
+  const long long rows = 1LL * B * Hq * n_q * kRows;
+  const long long q_items = 1LL * n_q * Hq * B, k_items = 1LL * n_k * Hkv * B;
+  if (rows / 32 > 0x7fffffff || q_items > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const float scale_log2 = scale * kLog2e;
+  bwd_stats_bf16<<<static_cast<unsigned>(rows / 32), 256, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dO), lse, stats,
+      Hq, Sq, n_q, HDT, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_wgmma<HD, HDT><<<static_cast<unsigned>(q_items), 256, kSmemQ, s>>>(
+      qm, km, vm, dm, qa, ka, va, da, stats, static_cast<bf16*>(dq),
+      st.dq[0], st.dq[1], st.dq[2], Hq, Hkv, Sq, Skv, B, causal, scale,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_wgmma<HD, HDT>
+      <<<static_cast<unsigned>(k_items), 256, kSmemKV, s>>>(
+          qm, km, vm, dm, qa, ka, va, da, stats, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), st.dk[0], st.dk[1], st.dk[2], st.dv[0],
+          st.dv[1], st.dv[2], Hq, Hkv, Sq, Skv, B, causal, scale,
+          scale_log2);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ f32
+
+// D[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d], one warp per row.
+__global__ void __launch_bounds__(256)
+bwd_dot(const float* __restrict__ o, const float* __restrict__ dO,
         float* __restrict__ D, int Hq, int Sq, int hd, Strides st,
         long long rows) {
   const long long row = blockIdx.x * 8LL + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int i = row % Sq, h = (row / Sq) % Hq, b = row / (1LL * Sq * Hq);
-  const T* orow = o + b * st.o[0] + h * st.o[1] + i * st.o[2];
-  const T* drow = dO + b * st.dO[0] + h * st.dO[1] + i * st.dO[2];
+  const float* orow = o + b * st.o[0] + h * st.o[1] + i * st.o[2];
+  const float* drow = dO + b * st.dO[0] + h * st.dO[1] + i * st.dO[2];
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+  for (int d = lane; d < hd; d += 32) acc += orow[d] * drow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(~0u, acc, off);
   if (lane == 0) D[row] = acc;
 }
 
-// ------------------------------------------------------------------ bf16
-
-constexpr int kKeys = 64;    // keys per dK/dV block, per dQ key tile
-constexpr int kQRows = 64;   // queries per dQ block
-
-// rows of a padded bf16 tile: hd + 8 elements (16 bytes) per row, so the
-// 8 rows one ldmatrix reads start in 8 distinct groups of 4 banks
-template <int HD>
-struct Pad {
-  static constexpr int kRow = HD + 8;
-};
-
-// `n` rows of hd columns from global (row r at base + r * rs) into a padded
-// tile, 16 bytes per cp.async; rows >= live are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
-                                          long long rs, int n, int live,
-                                          int tid, int nthreads) {
-  constexpr int kChunks = HD / 8;           // 16-byte chunks of a row
-  for (int c = tid; c < n * kChunks; c += nthreads) {
-    const int r = c / kChunks, x = (c % kChunks) * 8;
-    const bool ok = r < live;
-    sm90::cp_async16(dst + r * Pad<HD>::kRow + x,
-                     base + (ok ? r * rs : 0) + x, ok);
-  }
-}
-
-// A operand (16 x 16, row-major in a padded tile) at (row r0, column c0)
-template <int HD>
-__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* t, int r0,
-                                    int c0, int lane) {
-  sm90::ldmatrix_x4(a[0], a[1], a[2], a[3],
-                    t + (r0 + (lane & 15)) * Pad<HD>::kRow + c0 +
-                        (lane >> 4) * 8);
-}
-// B operands of two n8 tiles (n0, n0 + 8) over k16 at k0, from a tile
-// stored [n][k] (n rows, k contiguous): b[0], b[1] tile n0; b[2], b[3]
-// tile n0 + 8.
-template <int HD>
-__device__ __forceinline__ void ldb_nk(uint32_t (&b)[4], const bf16* t,
-                                       int n0, int k0, int lane) {
-  sm90::ldmatrix_x4(b[0], b[1], b[2], b[3],
-                    t + (n0 + (lane >> 4) * 8 + (lane & 7)) * Pad<HD>::kRow +
-                        k0 + ((lane >> 3) & 1) * 8);
-}
-// the same from a tile stored [k][n] (k rows, n contiguous), transposed
-// by ldmatrix
-template <int HD>
-__device__ __forceinline__ void ldb_kn(uint32_t (&b)[4], const bf16* t,
-                                       int k0, int n0, int lane) {
-  sm90::ldmatrix_x4_trans(b[0], b[1], b[2], b[3],
-                          t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  Pad<HD>::kRow +
-                              n0 + (lane >> 4) * 8);
-}
-
-// acc (16 x N, NT = N / 8 tiles) += A-tile (16 rows of `a_t` from r0) *
-// B^T, B stored [n][k] with N rows: the S = Q K^T shape, k over hd
-template <int HD, int NT>
-__device__ __forceinline__ void mma_rows_nk(float (&acc)[NT][4],
-                                            const bf16* a_t, int r0,
-                                            const bf16* b_t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    lda<HD>(a, a_t, r0, kk * 16, lane);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldb_nk<HD>(b, b_t, np * 16, kk * 16, lane);
-      sm90::mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-      sm90::mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x HD) += P (16 x K, accumulator fragments, KT = K / 8 tiles,
-// rounded to bf16) * B, B stored [k][n] (K rows of hd): the O = P V shape
-template <int HD, int KT>
-__device__ __forceinline__ void mma_frag_kn(float (&acc)[HD / 8][4],
-                                            const float (&p)[KT][4],
-                                            const bf16* b_t, int lane) {
-#pragma unroll
-  for (int kq = 0; kq < KT / 2; ++kq) {
-    const uint32_t a[4] = {sm90::pack_bf16(p[2 * kq][0], p[2 * kq][1]),
-                           sm90::pack_bf16(p[2 * kq][2], p[2 * kq][3]),
-                           sm90::pack_bf16(p[2 * kq + 1][0], p[2 * kq + 1][1]),
-                           sm90::pack_bf16(p[2 * kq + 1][2],
-                                           p[2 * kq + 1][3])};
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t b[4];
-      ldb_kn<HD>(b, b_t, kq * 16, np * 16, lane);
-      sm90::mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
-      sm90::mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows r_lo, r_lo + 8 of a 16 x HD accumulator, times `mul`, into bf16 rows
-// at base + row * rs (rows >= live are not written)
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* base, long long rs,
-                                           const float (&acc)[HD / 8][4],
-                                           int r_lo, int live, float mul,
-                                           int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r_lo + 8 * half;
-    if (r >= live) continue;
-    bf16* row = base + r * rs + 2 * (lane & 3);
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * nt) =
-          __floats2bfloat162_rn(acc[nt][2 * half] * mul,
-                                acc[nt][2 * half + 1] * mul);
-  }
-}
-
-// dK / dV.  Grid (ceil(Skv / 64), Hkv, B), 128 threads: warp w owns keys
-// k0 + 16w .. + 15 and computes S^T (its keys x BQ queries) so that P^T
-// and dS^T are the A operands of dV += P^T dO and dK += dS^T Q without a
-// trip through shared memory.  Items (query head of the group, query tile)
-// stream through a two-stage cp.async ring of Q / dO tiles.
-template <int HD, int BQ>
-__global__ void __launch_bounds__(128)
-bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dO,
-              const float* __restrict__ lse, const float* __restrict__ Dv,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int Hkv,
-              int Sq, int Skv, Strides st, int causal, float scale) {
-  constexpr int R = Pad<HD>::kRow;
-  constexpr int QT = BQ / 8;                 // n8 tiles of a query tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);        // [64][R]
-  bf16* v_s = k_s + kKeys * R;                          // [64][R]
-  bf16* q_s = v_s + kKeys * R;                          // [2][BQ][R]
-  bf16* do_s = q_s + 2 * BQ * R;                        // [2][BQ][R]
-  float* l_s = reinterpret_cast<float*>(do_s + 2 * BQ * R);   // [2][BQ]
-  float* d_s = l_s + 2 * BQ;                                  // [2][BQ]
-
-  const int k0 = blockIdx.x * kKeys, g = blockIdx.y, b = blockIdx.z;
-  const int rep = Hq / Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int qt0 = causal ? min(k0 / BQ, n_qt) : 0;
-  const int per_head = n_qt - qt0;
-  const int n_items = rep * per_head;
-  const float scale_log2 = scale * kLog2e;
-
-  load_rows<HD>(k_s, k + b * st.k[0] + g * st.k[1] + k0 * st.k[2], st.k[2],
-                kKeys, Skv - k0, tid, 128);
-  load_rows<HD>(v_s, v + b * st.v[0] + g * st.v[1] + k0 * st.v[2], st.v[2],
-                kKeys, Skv - k0, tid, 128);
-  // item `it` into stage `sg`: Q and dO tiles by cp.async, lse (in log2
-  // units) and D by plain stores, seen after the next __syncthreads
-  auto issue = [&](int it, int sg) {
-    const int h = g * rep + it / per_head;
-    const int q0 = (qt0 + it % per_head) * BQ;
-    load_rows<HD>(q_s + sg * BQ * R,
-                  q + b * st.q[0] + h * st.q[1] + q0 * st.q[2], st.q[2], BQ,
-                  Sq - q0, tid, 128);
-    load_rows<HD>(do_s + sg * BQ * R,
-                  dO + b * st.dO[0] + h * st.dO[1] + q0 * st.dO[2], st.dO[2],
-                  BQ, Sq - q0, tid, 128);
-    for (int r = tid; r < BQ; r += 128) {
-      const long long at = (static_cast<long long>(b) * Hq + h) * Sq + q0 + r;
-      const bool ok = q0 + r < Sq;
-      l_s[sg * BQ + r] = ok ? lse[at] * kLog2e : 0.f;
-      d_s[sg * BQ + r] = ok ? Dv[at] : 0.f;
-    }
-  };
-  if (n_items > 0) issue(0, 0);
-  sm90::cp_async_commit();
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-  const int key_lo = k0 + warp * 16 + (lane >> 2);     // keys key_lo, +8
-
-  for (int it = 0; it < n_items; ++it) {
-    const int sg = it & 1;
-    if (it + 1 < n_items) issue(it + 1, sg ^ 1);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* qt = q_s + sg * BQ * R;
-    const bf16* dot = do_s + sg * BQ * R;
-    const float* lt = l_s + sg * BQ;
-    const float* dt = d_s + sg * BQ;
-    const int q0 = (qt0 + it % per_head) * BQ;
-
-    // S^T = K Q^T -> P^T
-    float p[QT][4];
-#pragma unroll
-    for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = 0.f;
-    mma_rows_nk<HD, QT>(p, k_s, warp * 16, qt, lane);
-#pragma unroll
-    for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = 8 * nt + 2 * (lane & 3) + (e & 1);
-        const int i = q0 + ql, key = key_lo + 8 * (e >> 1);
-        const bool live = i < Sq && !(causal && key > i);
-        p[nt][e] = live ? sm90::fast_exp2(p[nt][e] * scale_log2 - lt[ql])
-                        : 0.f;
-      }
-    // dV += P^T dO
-    mma_frag_kn<HD, QT>(dv_acc, p, dot, lane);
-    // dP^T = V dO^T -> dS^T = P^T (dP^T - D)
-    float ds[QT][4];
-#pragma unroll
-    for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = 0.f;
-    mma_rows_nk<HD, QT>(ds, v_s, warp * 16, dot, lane);
-#pragma unroll
-    for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - dt[8 * nt + 2 * (lane & 3) +
-                                                (e & 1)]);
-    // dK += dS^T Q
-    mma_frag_kn<HD, QT>(dk_acc, ds, qt, lane);
-    __syncthreads();                  // this stage may be refilled
-  }
-  sm90::cp_async_wait<0>();           // no copy outlives the block
-  store_rows<HD>(dk + b * st.dk[0] + g * st.dk[1] + k0 * st.dk[2], st.dk[2],
-                 dk_acc, warp * 16 + (lane >> 2), Skv - k0, scale, lane);
-  store_rows<HD>(dv + b * st.dv[0] + g * st.dv[1] + k0 * st.dv[2], st.dv[2],
-                 dv_acc, warp * 16 + (lane >> 2), Skv - k0, 1.f, lane);
-}
-
-// dQ.  Grid (ceil(Sq / 64), Hq, B), 128 threads: warp w owns queries
-// q0 + 16w .. + 15; K / V tiles stream through a two-stage cp.async ring.
-template <int HD>
-__global__ void __launch_bounds__(128)
-bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dO,
-            const float* __restrict__ lse, const float* __restrict__ Dv,
-            bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
-            Strides st, int causal, float scale) {
-  constexpr int R = Pad<HD>::kRow;
-  constexpr int KT = kKeys / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);        // [64][R]
-  bf16* do_s = q_s + kQRows * R;                        // [64][R]
-  bf16* k_s = do_s + kQRows * R;                        // [2][64][R]
-  bf16* v_s = k_s + 2 * kKeys * R;                      // [2][64][R]
-  float* l_s = reinterpret_cast<float*>(v_s + 2 * kKeys * R);  // [64]
-  float* d_s = l_s + kQRows;                                   // [64]
-
-  const int q0 = blockIdx.x * kQRows, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (Hq / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k_end = causal ? min(Skv, q0 + kQRows) : Skv;
-  const int n_kt = (k_end + kKeys - 1) / kKeys;
-  const float scale_log2 = scale * kLog2e;
-
-  load_rows<HD>(q_s, q + b * st.q[0] + h * st.q[1] + q0 * st.q[2], st.q[2],
-                kQRows, Sq - q0, tid, 128);
-  load_rows<HD>(do_s, dO + b * st.dO[0] + h * st.dO[1] + q0 * st.dO[2],
-                st.dO[2], kQRows, Sq - q0, tid, 128);
-  for (int r = tid; r < kQRows; r += 128) {
-    const long long at = (static_cast<long long>(b) * Hq + h) * Sq + q0 + r;
-    const bool ok = q0 + r < Sq;
-    l_s[r] = ok ? lse[at] * kLog2e : 0.f;
-    d_s[r] = ok ? Dv[at] : 0.f;
-  }
-  auto issue = [&](int t, int sg) {
-    const int kb = t * kKeys;
-    load_rows<HD>(k_s + sg * kKeys * R,
-                  k + b * st.k[0] + g * st.k[1] + kb * st.k[2], st.k[2],
-                  kKeys, Skv - kb, tid, 128);
-    load_rows<HD>(v_s + sg * kKeys * R,
-                  v + b * st.v[0] + g * st.v[1] + kb * st.v[2], st.v[2],
-                  kKeys, Skv - kb, tid, 128);
-  };
-  issue(0, 0);
-  sm90::cp_async_commit();
-
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.f;
-  const int r_lo = warp * 16 + (lane >> 2);          // rows r_lo, r_lo + 8
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int sg = t & 1;
-    if (t + 1 < n_kt) issue(t + 1, sg ^ 1);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* kt = k_s + sg * kKeys * R;
-    const bf16* vt = v_s + sg * kKeys * R;
-    const int kb = t * kKeys;
-
-    // S = Q K^T -> P
-    float p[KT][4];
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = 0.f;
-    mma_rows_nk<HD, KT>(p, q_s, warp * 16, kt, lane);
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = r_lo + 8 * (e >> 1);
-        const int key = kb + 8 * nt + 2 * (lane & 3) + (e & 1);
-        const bool live = key < Skv && !(causal && key > q0 + rl);
-        p[nt][e] = live ? sm90::fast_exp2(p[nt][e] * scale_log2 - l_s[rl])
-                        : 0.f;
-      }
-    // dP = dO V^T -> dS = P (dP - D)
-    float ds[KT][4];
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = 0.f;
-    mma_rows_nk<HD, KT>(ds, do_s, warp * 16, vt, lane);
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - d_s[r_lo + 8 * (e >> 1)]);
-    // dQ += dS K
-    mma_frag_kn<HD, KT>(dq_acc, ds, kt, lane);
-    __syncthreads();                  // this stage may be refilled
-  }
-  store_rows<HD>(dq + b * st.dq[0] + h * st.dq[1] + q0 * st.dq[2], st.dq[2],
-                 dq_acc, r_lo, Sq - q0, scale, lane);
-}
-
-template <int HD, int BQ>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                        const bf16* dO, const float* lse, const float* D,
-                        bf16* dq, bf16* dk, bf16* dv, int B, int Hq, int Hkv,
-                        int Sq, int Skv, const Strides& st, int causal,
-                        float scale, cudaStream_t s) {
-  constexpr int R = Pad<HD>::kRow;
-  constexpr int kSmemKV = (2 * kKeys + 4 * BQ) * R * 2 + 4 * BQ * 4;
-  constexpr int kSmemQ = (2 * kQRows + 4 * kKeys) * R * 2 + 2 * kQRows * 4;
-  static const cudaError_t a1 = cudaFuncSetAttribute(
-      bwd_dkdv_bf16<HD, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemKV);
-  static const cudaError_t a2 = cudaFuncSetAttribute(
-      bwd_dq_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
-  if (a1 != cudaSuccess) return a1;
-  if (a2 != cudaSuccess) return a2;
-  bwd_dkdv_bf16<HD, BQ>
-      <<<dim3((Skv + kKeys - 1) / kKeys, Hkv, B), 128, kSmemKV, s>>>(
-          q, k, v, dO, lse, D, dk, dv, Hq, Hkv, Sq, Skv, st, causal, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dq_bf16<HD><<<dim3((Sq + kQRows - 1) / kQRows, Hq, B), 128, kSmemQ,
-                    s>>>(q, k, v, dO, lse, D, dq, Hq, Hkv, Sq, Skv, st,
-                         causal, scale);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ f32
 // CUDA cores, 8 threads to a row, each holding every 8th element of hd.
-
 constexpr int kF32Rows = 16;   // rows (keys or queries) per block
 constexpr int kF32Tile = 32;   // rows of the other side per shared tile
 
@@ -618,10 +768,12 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 
 // dtype: 0 float32, 1 bfloat16.  strides: 24 element strides, (batch, head,
 // seq) of q, k, v, o, dO, dq, dk, dv in that order (hd contiguous).  lse:
-// the forward's float32 (B, Hq, Sq) log-sum-exp; D: float32 (B, Hq, Sq)
-// scratch.  Launches the D pass, dK / dV and dQ on `stream`; returns
-// cudaGetLastError() after the last (cudaErrorInvalidValue for a shape the
-// kernels do not take).
+// the forward's float32 (B, Hq, Sq) log-sum-exp.  D: float32 scratch of
+// 2 * B * Hq * ceil(Sq / 64) * 64 floats (the bf16 route's stats blocks;
+// float32 uses its first B * Hq * Sq as D).  Launches the stats (D) pass,
+// then dQ and dK / dV, on `stream`; returns cudaGetLastError() after the
+// last (cudaErrorInvalidValue for a shape the kernels do not take, or a
+// bf16 operand TMA cannot address).
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dO, const float* lse, float* D, void* dq, void* dk, void* dv,
@@ -636,50 +788,39 @@ extern "C" int flash_attention_bwd_launch(
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = 1LL * B * Hq * Sq;
-  if (dtype == 0)
-    bwd_dot<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dO), D, Hq,
-        Sq, hd, st, rows);
-  else
-    bwd_dot<bf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dO), D, Hq,
-        Sq, hd, st, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0) {
-    const float *fq = static_cast<const float*>(q),
-                *fk = static_cast<const float*>(k),
-                *fv = static_cast<const float*>(v),
-                *fdo = static_cast<const float*>(dO);
-    float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
-          *gv = static_cast<float*>(dv);
+  cudaError_t err;
+  if (dtype == 1) {
     if (hd == 64)
-      err = launch_f32<64>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv,
-                           Sq, Skv, st, causal, scale, s);
-    else if (hd == 80)
-      err = launch_f32<80>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv,
-                           Sq, Skv, st, causal, scale, s);
-    else
-      err = launch_f32<128>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv,
-                            Sq, Skv, st, causal, scale, s);
-  } else {
-    const bf16 *bq = static_cast<const bf16*>(q),
-               *bk = static_cast<const bf16*>(k),
-               *bv = static_cast<const bf16*>(v),
-               *bdo = static_cast<const bf16*>(dO);
-    bf16 *gq = static_cast<bf16*>(dq), *gk = static_cast<bf16*>(dk),
-         *gv = static_cast<bf16*>(dv);
-    // hd 128: 32-query tiles keep S^T, dP^T, dK and dV in registers
-    if (hd == 64)
-      err = launch_bf16<64, 64>(bq, bk, bv, bdo, lse, D, gq, gk, gv, B, Hq,
+      err = launch_bf16<64, 64>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq,
                                 Hkv, Sq, Skv, st, causal, scale, s);
     else if (hd == 80)
-      err = launch_bf16<80, 64>(bq, bk, bv, bdo, lse, D, gq, gk, gv, B, Hq,
-                                Hkv, Sq, Skv, st, causal, scale, s);
-    else
-      err = launch_bf16<128, 32>(bq, bk, bv, bdo, lse, D, gq, gk, gv, B, Hq,
+      err = launch_bf16<128, 80>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Hq,
                                  Hkv, Sq, Skv, st, causal, scale, s);
+    else
+      err = launch_bf16<128, 128>(q, k, v, o, dO, lse, D, dq, dk, dv, B,
+                                  Hq, Hkv, Sq, Skv, st, causal, scale, s);
+    return static_cast<int>(err);
   }
+  const long long rows = 1LL * B * Hq * Sq;
+  bwd_dot<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dO), D, Hq,
+      Sq, hd, st, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fdo = static_cast<const float*>(dO);
+  float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
+        *gv = static_cast<float*>(dv);
+  if (hd == 64)
+    err = launch_f32<64>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv, Sq,
+                         Skv, st, causal, scale, s);
+  else if (hd == 80)
+    err = launch_f32<80>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv, Sq,
+                         Skv, st, causal, scale, s);
+  else
+    err = launch_f32<128>(fq, fk, fv, fdo, lse, D, gq, gk, gv, B, Hq, Hkv,
+                          Sq, Skv, st, causal, scale, s);
   return static_cast<int>(err);
 }

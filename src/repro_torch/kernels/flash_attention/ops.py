@@ -16,16 +16,17 @@ Gradient: when grad mode is on and q, k or v requires grad,
 :func:`flash_attention` runs :class:`FlashAttention`, a
 ``torch.autograd.Function``.  Its forward also writes each row's
 log-sum-exp (the kernel's optional ``lse`` output; serving passes none),
-and its backward launches ``csrc/flash_attention_bwd.cu`` (a D pass, dK /
-dV and dQ, no float atomics, so the gradient is deterministic).  On a CPU
-tensor both directions run the plain versions of ``ref.py``.  The
-backward reads dO by stride as it reads q, k and v; a dO whose hd is not
-contiguous, or whose bf16 rows are not 16-byte aligned, is copied first
-and counted in ``dout_copies``.
+and its backward launches ``csrc/flash_attention_bwd.cu`` (a stats pass
+of lse and D, then dQ and dK / dV; no float atomics, so the gradient is
+bitwise deterministic).  On a CPU tensor both directions run the plain
+versions of ``ref.py``.  The backward reads dO by stride, through TMA in
+bf16, as it reads q, k and v; a dO that TMA cannot address (hd not
+contiguous, or a base or stride not a 16-byte multiple) is copied first
+and counted in ``dout_copies``: the model's layout needs no copy.
 
 ``launches`` counts the forward kernel's launches of this process,
-``bwd_launches`` the backward's (each one D pass, one dK / dV and one dQ
-kernel); a caller may reset them to 0.
+``bwd_launches`` the backward's (each one stats pass, one dQ and one dK /
+dV kernel); a caller may reset them to 0.
 """
 
 from __future__ import annotations
@@ -175,7 +176,7 @@ def _launch(q, k, v, causal, want_lse=False):
 
 def _rows_ok(t: torch.Tensor) -> bool:
     """The backward reads ``t`` by stride: hd contiguous and, for bf16,
-    16-byte aligned rows (cp.async moves 16 bytes at a time)."""
+    what :func:`check_tma` asks (TMA tiles and 16-byte loads)."""
     if t.stride(3) != 1:
         return False
     if t.dtype != torch.bfloat16:
@@ -201,7 +202,7 @@ def _launch_bwd(q, k, v, o, dO, lse, causal):
     if not _rows_ok(o):
         raise ValueError("o must be contiguous along hd with 16-byte rows")
     if not _rows_ok(dO):
-        dO = dO.contiguous()
+        dO = dO.clone(memory_format=torch.contiguous_format)
         dout_copies += 1
     for name, t in (("o", o), ("dO", dO), ("lse", lse)):
         if t.device != q.device:
@@ -209,7 +210,10 @@ def _launch_bwd(q, k, v, o, dO, lse, causal):
     code = _build.dtype_code(q.dtype)
     lib = _build.library()
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
-    D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # scratch: per 64-query tile of each (batch, head), the rows' lse and
+    # D (bf16), or D alone in its first B * Hq * Sq floats (float32)
+    D = torch.empty(2 * B * Hq * -(-Sq // 64) * 64, dtype=torch.float32,
+                    device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

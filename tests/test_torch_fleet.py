@@ -15,10 +15,17 @@ CPU, held against the JAX package with the same weights (carried over by
 * a prefill-role replica handing every session to two decode replicas
   over a transport, token-identical to the JAX engine;
 * the same crash through the JAX gateway gives the same alert ticks,
-  counts and gateway counters.
+  counts and gateway counters.  Both runs read one fake clock (1 ms a
+  read), monkeypatched into both engine modules' ``time`` and passed to
+  both gateways: the interference detector quarantines on wall-clock step
+  latencies, and a host stall in one run alone (a loaded test worker)
+  would otherwise quarantine a replica there and not in the other.
 
 Float32 on both sides.
 """
+
+import time
+import types
 
 import jax
 import numpy as np
@@ -33,6 +40,7 @@ from repro.obs import SLOMonitor as JSLOMonitor
 from repro.region.transport import LoopbackTransport as JLoopback
 from repro.router import FleetGateway as JFleetGateway
 from repro.serve import Request, ServeEngine
+from repro.serve import engine as jengine
 from repro_torch.chaos import FaultInjector
 from repro_torch.configs import get_config as tget_config
 from repro_torch.models import get_model as tget_model
@@ -43,6 +51,7 @@ from repro_torch.region import LoopbackTransport
 from repro_torch.router import Admission, FleetGateway
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
+from repro_torch.serve import engine as tengine
 
 ARCH = "smollm-135m"
 
@@ -167,7 +176,21 @@ def test_gateway_drains_pending_session_imports_too(pair):
         jm, params, prompts, 12, 48)
 
 
-def _crash_run(pkg, m, params, prompts):
+class _Clock:
+    """A fake ``perf_counter`` that moves 1 ms at every read: given to a
+    gateway's ``clock`` and to its package's engines, so every latency the
+    router and its detector see follows from the sequence of reads alone,
+    which the two packages share."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        self.now += 1e-3
+        return self.now
+
+
+def _crash_run(pkg, m, params, prompts, clock=time.perf_counter):
     """The seeded crash of ``tests/test_slo.py`` through either package's
     gateway: replica 1 dies at pump 1 and restarts at pump 8, heartbeats
     time out after 2 pumps, handoffs ride a loopback transport."""
@@ -181,7 +204,8 @@ def _crash_run(pkg, m, params, prompts):
             SLOMonitor
     inj = Inj(0).crash(1, at_step=1, restart_at=8)
     gw = Gw([Eng(m, params, max_batch=4, max_seq=48) for _ in range(2)],
-            transport=Loop(), injector=inj, heartbeat_timeout=2.0)
+            transport=Loop(), injector=inj, heartbeat_timeout=2.0,
+            clock=clock)
     mon = Mon([Obj("ttft_pumps", target=0.75, threshold=2.0)],
               fast_window=5, slow_window=15, burn_threshold=1.5)
     gw.attach_slo(mon)
@@ -215,11 +239,21 @@ def test_crash_fires_ttft_burn_alert_then_clears(pair):
     assert streams == _jax_streams(jm, params, prompts, 6, 48)
 
 
-def test_crash_recovery_counters_match_jax_gateway(pair):
+def _clocked_crash_run(pkg, m, params, prompts, monkeypatch):
+    clock = _Clock()
+    module = tengine if pkg == "torch" else jengine
+    monkeypatch.setattr(module, "time",
+                        types.SimpleNamespace(perf_counter=clock))
+    return _crash_run(pkg, m, params, prompts, clock=clock)
+
+
+def test_crash_recovery_counters_match_jax_gateway(pair, monkeypatch):
     jm, params, tm, tp = pair(0)
     prompts = _prompts(tm.cfg.vocab, 5, 4, 8)
-    tgw, tstates, tcounts, tstreams = _crash_run("torch", tm, tp, prompts)
-    jgw, jstates, jcounts, jstreams = _crash_run("jax", jm, params, prompts)
+    tgw, tstates, tcounts, tstreams = _clocked_crash_run(
+        "torch", tm, tp, prompts, monkeypatch)
+    jgw, jstates, jcounts, jstreams = _clocked_crash_run(
+        "jax", jm, params, prompts, monkeypatch)
     assert (tstates, tcounts, tstreams) == (jstates, jcounts, jstreams)
     keys = ("crashes_detected", "crash_sessions_recovered",
             "crash_requests_resubmitted", "requests_served", "per_replica",
