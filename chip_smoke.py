@@ -205,7 +205,37 @@ Phases, in order; any failure exits non-zero before the last line:
              within 1e-5 relative, copy exact, sort exact per chunk); it
              prints tasks/s, makespan, placements by width and the trained
              PTT, and profiles one run (each kernel class's device time
-             in it).
+             in it);
+18. paper  — the paper's three results through ``repro_torch.sim``,
+             labelled simulated (virtual time under the reference's
+             platform models, not times of the card): the quickstart's
+             TX2 speedups, the Haswell interference run and the VGG-16
+             strong-scaling study, each run twice and the two runs equal,
+             the mixed DAG's speedup above 1 and the VGG makespan falling
+             with the cores; then ``repro_torch.examples.vgg16_classify``'s
+             real forward on the card: 8 GEMM TAOs over 2 workers, each
+             chunk one ``matmul`` launch into its block and a ReLU on the
+             worker's stream; launches equal the TAOs' widths (plus the
+             representative layer's one), the activations within 1e-5
+             relative of the same forward through ``matmul_ref`` (TF32
+             off), the representative (128 x 16) x (16 x 128) layer within
+             1e-4 of ``matmul_ref``, its wall time; then the device time
+             of each body chunk the run recorded (one a launch, or the
+             phase fails), its matmul and its ReLU each replayed alone on
+             the same tensors as the kernels phase times a kernel;
+19. examples — ``serve_lm``, ``fleet_serve``, ``region_serve``,
+             ``slo_smoke`` and ``train_lm`` (20 steps: 10, then a resume to
+             20) through their ``main`` on the card, on the reference
+             examples' reduced configs with heads widened to 64 (the
+             narrowest the attention kernels take; the CPU tests run the
+             same configs): every request done in vocabulary, the
+             attention kernels launched, losses finite.
+Between the region and the MoE phases, the audit (20): the serve phase's
+model's ``decode_fused`` (B 8, k 4) and ``prefill_chunk`` (T 256) under
+``torch.cuda.set_sync_debug_mode("error")``, every cache tensor keeping
+its ``data_ptr`` and no op returning float64, a decode that reads a
+token on the host caught, then ``python -m repro_torch.analysis`` (lint,
+contracts and the audit of all five families on the card) exiting 0.
 
 The kernels phase also holds the runtime's kernels and ``stream_scale_add``
 against their plain versions (``torch.matmul``, ``dst.copy_(src)``, the
@@ -3210,6 +3240,250 @@ def phase_runtime(torch, seed, card):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# 18. the paper's simulator and the VGG-16 forward on the card
+# ---------------------------------------------------------------------------
+
+VGG_RTOL = 1e-5              # activations against the matmul_ref forward
+VGG_REP_ATOL = 1e-4          # the reference example's representative check
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (text, result)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return buf.getvalue(), out
+
+
+def phase_paper(torch, card):
+    """The paper's three results through ``repro_torch.sim`` (virtual time
+    under the reference's platform models, not times of this card), each
+    run twice and the two runs equal; then the VGG-16 reduced forward on
+    the card: every GEMM TAO body a ``matmul`` launch into its block."""
+    from repro_torch.examples import interference_adaptation, quickstart
+    from repro_torch.examples import vgg16_classify as V
+    from repro_torch.kernels.matmul import matmul_ref
+    from repro_torch.kernels.matmul import ops as mm
+
+    for name, fn in (("quickstart", quickstart.main),
+                     ("interference", interference_adaptation.main),
+                     ("vgg16 scaling", V.scaling_study)):
+        t0 = time.perf_counter()
+        text, out = _quiet(fn)
+        again, _ = _quiet(fn)
+        host = time.perf_counter() - t0
+        check(text == again, f"{name}: two simulations differ")
+        for line in text.strip("\n").splitlines():
+            if line.strip():
+                print(f"[paper] (simulated) {line}")
+        print(f"[paper] {name}: two runs identical; {host:.2f} s of host "
+              f"time for both")
+        if name == "quickstart":
+            mixed = out["mixed random DAG (par~4)"]
+            check(mixed > 1.0, f"mixed-DAG speedup {mixed} <= 1")
+            print(f"[paper] (simulated) speedups: " + ", ".join(
+                f"{k} {v:.4f}x" for k, v in out.items()))
+        elif name == "interference":
+            fracs = {k: float(v) for k, v in out["critical_on_0_1"].items()}
+            print(f"[paper] (simulated) share of critical tasks led from "
+                  f"cores 0-1: {fracs}; makespan {out['makespan']} "
+                  f"against {out['clean_makespan']} without the window")
+        else:
+            spans = [m for _, m, _ in out]
+            check(all(a > b for a, b in zip(spans, spans[1:])),
+                  f"VGG makespans do not fall with the cores: {spans}")
+            print("[paper] (simulated) efficiencies: " + ", ".join(
+                f"{n}: {e:.4f}" for n, _, e in out))
+
+    # the forward on the card; the first run warms the worker streams
+    _quiet(V.real_forward, "cuda")
+    torch.cuda.synchronize()
+    mm.launches = 0
+    t0 = time.perf_counter()
+    text, out = _quiet(V.real_forward, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mm.launches
+    for line in text.strip("\n").splitlines():
+        print(f"[paper] {line}")
+    widths = sum(w for _, w in out["placements"].values())
+    n_taos = V.TAOS_PER_LAYER * len(V.LAYERS)
+    check(len(out["placements"]) == n_taos,
+          f"{len(out['placements'])} of {n_taos} TAOs placed")
+    # one launch a chunk of each TAO, and the representative layer's one
+    check(launches == widths + 1,
+          f"matmul launched {launches} times; the TAOs' widths sum to "
+          f"{widths}, plus the representative layer's one")
+    check(out["ptt"].updates == n_taos,
+          f"ptt.updates {out['ptt'].updates} != {n_taos}")
+    plain = V.plain_forward(out["acts"][0], out["weights"])
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(out["acts"][1:], plain[1:])):
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        worst = max(worst, err / scale)
+        check(err <= VGG_RTOL * scale, f"VGG layer {i}: max abs err {err} "
+              f"> {VGG_RTOL} x {scale}")
+    x, y, got = out["representative"]
+    rep_err = (got - matmul_ref(x, y)).abs().max().item()
+    check(out["representative_ok"] and rep_err <= VGG_REP_ATOL,
+          f"representative layer off by {rep_err}")
+    print(f"[paper] VGG forward on the card: {n_taos} GEMM TAOs at widths "
+          f"summing to {widths}, {launches} matmul launches (with the "
+          f"representative layer's), activations within "
+          f"{worst:.3g} relative of the matmul_ref forward (limit "
+          f"{VGG_RTOL}), representative layer (128 x 16) x (16 x 128) max "
+          f"abs err {rep_err:.3g} (limit {VGG_REP_ATOL}); wall "
+          f"{1e3 * wall:.3f} ms ({card})")
+    print(f"[paper] trained PTT (GEMM row, ms; rows = workers, columns = "
+          f"widths): {(1e3 * out['ptt'].table(3)).round(4).tolist()}")
+    # device time: CUDA events around a body's launches on its worker's
+    # stream also hold the host's hand-offs of the interpreter lock between
+    # the runtime's threads (up to its 5 ms switch interval), so each chunk
+    # the run recorded is replayed alone, as ``time_ms`` times a kernel
+    chunks = out["chunks"]
+    check(len(chunks) == launches - 1, f"{len(chunks)} body chunks "
+          f"recorded for {launches - 1} matmul launches of the TAOs")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    mm_ms = relu_ms = 0.0
+    for a, w, blk in chunks:
+        mm_ms += time_ms(torch, lambda: mm.matmul(a, w, out=blk), flush)
+        relu_ms += time_ms(torch, lambda: blk.clamp_(min=0.0), flush)
+    del flush
+    check(all(math.isfinite(t) and t > 0 for t in (mm_ms, relu_ms)),
+          f"VGG device times {mm_ms}, {relu_ms}")
+    print(f"[paper] VGG forward device time, the run's {len(chunks)} body "
+          f"chunks each replayed alone (CUDA events, L2 flushed, mean of "
+          f"{N_TIMED}): matmul {mm_ms:.5f} ms, ReLU {relu_ms:.5f} ms, "
+          f"{mm_ms + relu_ms:.5f} ms in all against the run's wall "
+          f"{1e3 * wall:.3f} ms ({card})")
+    return {"matmul": launches}
+
+
+# ---------------------------------------------------------------------------
+# 19. the serving and training examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 20     # 10, then a resume to 20
+
+
+def phase_examples(torch, card):
+    """``repro_torch.examples``' serving and training entry points, each
+    through its ``main`` on the card (reduced configs, heads widened to 64
+    for the attention kernels); returns their kernel launches."""
+    import importlib
+    import tempfile
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+
+    totals = {"flash_attention": 0, "ragged_decode": 0, "ragged_prefill": 0,
+              "flash_attention_bwd": 0}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, argv in (
+                ("serve_lm", []), ("fleet_serve", []), ("region_serve", []),
+                ("slo_smoke", ["--out-dir", out_dir]),
+                ("train_lm", ["--steps", str(EXAMPLE_TRAIN_STEPS)])):
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            fa.launches = fa.bwd_launches = rd.launches = rp.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text, out = _quiet(mod.main, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"flash_attention": fa.launches,
+                   "ragged_decode": rd.launches,
+                   "ragged_prefill": rp.launches,
+                   "flash_attention_bwd": fa.bwd_launches}
+            for k, n in got.items():
+                totals[k] += n
+            tail = text.strip("\n").splitlines()[-3:]
+            print(f"[examples] {name}: wall {wall:.3f} s ({card}); "
+                  f"launches {got}; last lines: {tail}")
+            if name == "train_lm":
+                losses = out["first"]["losses"] + out["resumed"]["losses"]
+                check(len(out["first"]["losses"]) == EXAMPLE_TRAIN_STEPS // 2
+                      and len(losses) == EXAMPLE_TRAIN_STEPS,
+                      f"train_lm ran {len(losses)} steps")
+                check(all(math.isfinite(x) for x in losses),
+                      f"a non-finite loss: {losses}")
+                check(got["flash_attention"] > 0
+                      and got["flash_attention_bwd"] > 0,
+                      f"train_lm never reached the flash kernels: {got}")
+                print(f"[examples] train_lm losses {losses}")
+                continue
+            check(got["flash_attention"] > 0 and got["ragged_decode"] > 0,
+                  f"{name} never reached the attention kernels: {got}")
+            if name == "slo_smoke":
+                st = out["gateway"].stats()
+                check(st["requests_served"] == 4, "slo_smoke served "
+                      f"{st['requests_served']} of 4")
+                continue
+            reqs = out["requests"]
+            reqs = list(reqs.values() if isinstance(reqs, dict) else reqs)
+            check(all(r.done and r.out_tokens
+                      and all(0 <= t < out["vocab"] for t in r.out_tokens)
+                      for r in reqs),
+                  f"{name}: a request unfinished or out of vocabulary")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 20. the analysis gate's audit on the card
+# ---------------------------------------------------------------------------
+
+def phase_audit(torch, card, model, params):
+    """``Model.decode_fused`` and ``Model.prefill_chunk`` of the serve
+    phase's full-width model under ``torch.cuda.set_sync_debug_mode
+    ("error")``, with every cache tensor's ``data_ptr`` checked; then
+    ``python -m repro_torch.analysis`` (every layer) on the card."""
+    import dataclasses
+    import os
+    from repro_torch.analysis import audit
+    t0 = time.perf_counter()
+    findings = (audit.audit_decode_fused(model, params, batch=8, seq=2048,
+                                         chunk=4)
+                + audit.audit_prefill_chunk(model, params, batch=1,
+                                            seq=2048, chunk_t=256))
+    host = time.perf_counter() - t0
+    check(not findings, "audit findings:\n" + "\n".join(
+        f.render() for f in findings))
+    n_leaves = len(model.cache_spec(1, 1))
+    print(f"[audit] {model.cfg.name}: decode_fused (B 8, k 4, Smax 2048) "
+          f"and prefill_chunk (T 256) under set_sync_debug_mode('error'): "
+          f"no host sync, no float64 op, all {n_leaves} cache leaves kept "
+          f"their data_ptr; {host:.3f} s of host time ({card})")
+    # the gate itself on the card: a decode that reads a token on the host
+    fused = model.decode_fused
+
+    def reads_host(params, tok, pos, cache, k):
+        out = fused(params, tok, pos, cache, k)
+        out[0][0, 0].item()
+        return out
+    bad = audit.audit_decode_fused(
+        dataclasses.replace(model, decode_fused=reads_host), params,
+        batch=8, seq=2048, chunk=4)
+    check([f.rule for f in bad] == ["host-sync"],
+          f"the audit missed a .item() inside decode_fused: {bad}")
+    print(f"[audit] a decode_fused with one .item() is caught: "
+          f"{bad[0].message[:120]}")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--root", str(ROOT)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    check(r.returncode == 0, f"python -m repro_torch.analysis exited "
+          f"{r.returncode}:\n{r.stdout}\n{r.stderr}")
+    print(f"[audit] python -m repro_torch.analysis (lint, contracts, and "
+          f"the audit of {len(audit.FAMILY_ARCHS)} families on the card): "
+          f"exit 0, {r.stdout.strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+
 # the port's kernels' device functions, summed in the profile windows
 PROFILE_GROUPS = {"ragged_decode": ("decode_split_", "decode_combine"),
                   "flash_attention": ("flash_bf16_wgmma", "flash_f32"),
@@ -3361,6 +3635,7 @@ def main() -> int:
         phase_wire(torch, card, model, params, reqs)
         fleet = phase_fleet(torch, card, model, params, reqs)
         region = phase_region(torch, args.seed, card, model, params, reqs)
+        phase_audit(torch, card, model, params)
         del model, params
         # every serving path's launches: each phase's run counts from 0
         for path in (phase_moe(torch, args.seed, card, reqs),
@@ -3374,6 +3649,9 @@ def main() -> int:
         del reqs
         phase_checkpoint(torch, args.seed, card)
         launches.update(phase_runtime(torch, args.seed, card))
+        launches["matmul"] += phase_paper(torch, card)["matmul"]
+        for kernel, n in phase_examples(torch, card).items():
+            launches[kernel] += n
         for kernel, n in (*fleet.items(), *region.items()):
             launches[kernel] += n
         launches["stream_scale_add"] = scale_add_launches

@@ -157,6 +157,19 @@ def shape_skip_reason(cfg: ModelConfig, shape: str) -> str | None:
     return None
 
 
+#: The narrowest head the card's attention kernels take (ragged_decode and
+#: ragged_prefill: 64 or 128; flash_attention: 64, 80 or 128).
+CARD_HEAD_DIM = 64
+
+
+def widen_heads(cfg: ModelConfig, hd: int = CARD_HEAD_DIM) -> ModelConfig:
+    """``cfg`` with every head ``hd`` wide (``d_model = n_heads * hd``);
+    depth, heads, MLP and vocab stay.  The reduced configs' heads are 4 to
+    8 wide, narrower than any the card's attention kernels take; widened,
+    the same small model runs on the CPU and on the card."""
+    return dataclasses.replace(cfg, d_model=cfg.n_heads * hd, head_dim=0)
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 

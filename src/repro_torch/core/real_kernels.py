@@ -50,6 +50,27 @@ from .dag import KernelType
 from .runtime import TAOBody
 
 
+class WorkerStreams:
+    """``run(launch)``: run ``launch`` on the calling thread's own CUDA
+    stream and wait for it (see Streams and Synchronisation above); on
+    the CPU, just call it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._local = threading.local()
+
+    def __call__(self, launch) -> None:
+        if self.device.type != "cuda":
+            launch()
+            return
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            launch()
+        stream.synchronize()
+
+
 class KernelPool:
     """Preallocated working sets on the device, one slot per ``data_slot``
     (the generator's data-reuse memory step assigns slots; tasks sharing a
@@ -81,19 +102,7 @@ class KernelPool:
                          for _ in slots]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)      # the data is there for any stream
-        self._local = threading.local()
-
-    def _run(self, launch) -> None:
-        """Run ``launch`` on this thread's stream and wait for it."""
-        if self.device.type != "cuda":
-            launch()
-            return
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            stream = self._local.stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            launch()
-        stream.synchronize()
+        self._run = WorkerStreams(dev)
 
     def body(self, kernel: KernelType, slot: int) -> TAOBody:
         slot = slot % len(self.mats)

@@ -359,15 +359,15 @@ class ServeEngine:
             t0 = time.perf_counter()
             req.t_admit = t0
             d = self.scheduler.schedule_prefill(len(req.prompt))
-            batch = {"tokens": torch.as_tensor(np.asarray(req.prompt),
+            batch = {"tokens": torch.as_tensor(np.asarray(req.prompt),  # analysis: allow-host-sync(prompt is host numpy, no device transfer)
                                                device=self.device
                                                ).long()[None, :]}
             for name, val in req.extras.items():
-                batch[name] = torch.tensor(np.asarray(val),
+                batch[name] = torch.tensor(np.asarray(val),  # analysis: allow-host-sync(extras are host numpy, no device transfer)
                                            device=self.device)[None]
             logits, cache = self.model.prefill(self.params, batch)
             # the prefill's ONE host sync; the PTT sample is taken after it
-            next_tok = int(torch.argmax(logits[0, -1]))
+            next_tok = int(torch.argmax(logits[0, -1]))  # analysis: allow-host-sync(the one sanctioned sync per whole-prompt prefill)
             prefill_dur = time.perf_counter() - t0
             self.scheduler.record(d, prefill_dur, time.perf_counter())
             if self.tracer.enabled:
@@ -391,7 +391,7 @@ class ServeEngine:
         if not self.prefilling:
             return
         pf = self.prefilling[0]
-        prompt = np.asarray(pf.req.prompt)
+        prompt = np.asarray(pf.req.prompt)  # analysis: allow-host-sync(prompt is host numpy, no device transfer)
         C = self.prefill_chunk_tokens
         qlen = min(C, len(prompt) - pf.consumed)
         t0 = time.perf_counter()
@@ -411,9 +411,9 @@ class ServeEngine:
         # the last chunk; after any other, a wait that copies nothing (CPU
         # tensors are computed synchronously)
         if done:
-            next_tok = int(torch.argmax(logits[0, -1]))
+            next_tok = int(torch.argmax(logits[0, -1]))  # analysis: allow-host-sync(the one sanctioned sync per prefill chunk)
         elif self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # analysis: allow-host-sync(the one sanctioned sync per prefill chunk)
         dur = time.perf_counter() - t0
         self.scheduler.record(d, dur, time.perf_counter())
         self.last_prefill_chunk_latency = dur
@@ -649,7 +649,7 @@ class ServeEngine:
             self._dev_pos = self._dev_pos + 1
         # the chunk's ONE host sync: a (B, k) block of token ids; the PTT
         # sample below is taken after it, so it measures device time
-        toks = toks_dev.cpu().numpy()
+        toks = toks_dev.cpu().numpy()  # analysis: allow-host-sync(the one sanctioned sync per decode chunk)
         decode_elapsed = time.perf_counter() - t0
         self.scheduler.record(d, decode_elapsed, time.perf_counter())
         if self.tracer.enabled:
