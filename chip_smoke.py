@@ -236,6 +236,20 @@ model's ``decode_fused`` (B 8, k 4) and ``prefill_chunk`` (T 256) under
 its ``data_ptr`` and no op returning float64, a decode that reads a
 token on the host caught, then ``python -m repro_torch.analysis`` (lint,
 contracts and the audit of all five families on the card) exiting 0.
+After the audit, the mesh phase (21): a one-rank NCCL process group
+(``repro_torch.distributed.ranks.process_group``, card 0 bound; a failure
+to initialise fails the phase) and a (data 1, model 1) ``DeviceMesh``;
+under ``use_rules`` the serve phase's model on 4 of its prompts, 64 new
+tokens each (tokens identical to the same prompts without rules, 24
+flash launches a prefill, 4 x 24 ragged decodes a step),
+granite-moe-1b-a400m's 8 x 1024 prefill through ``moe_ep`` (2 x 24
+``all_to_all_single`` calls, 24 flash launches, logits bitwise equal to
+the prefill without rules, both timed with CUDA events),
+``compressed_allreduce_demo`` over 16.8 MB of f32 on a (pod 1, data 1)
+mesh (within half the int8 step of ``x``) and ``elastic_remesh`` of
+qwen2-0.5b's training state (params, m, v: 5.9 GB of f32) onto a fresh
+mesh, timed, after which one 8 x 1024 train step is bitwise equal to one
+without the move; the group is destroyed before the next phase.
 
 The kernels phase also holds the runtime's kernels and ``stream_scale_add``
 against their plain versions (``torch.matmul``, ``dst.copy_(src)``, the
@@ -3484,6 +3498,212 @@ def phase_audit(torch, card, model, params):
           f"({time.perf_counter() - t0:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# 21. mesh: sharding rules, expert parallelism and the collectives on a
+#     one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+MESH_PROMPTS = 4             # of the serve phase's prompts, 64 new each
+MOE_PREFILL = (8, 1024)      # granite's prefill through moe_ep: 8,192 tokens
+DEMO_FLOATS = 1 << 22        # compressed_allreduce_demo over 16.8 MB of f32
+
+
+def _events_ms(torch, fn):
+    """(fn's result, its device time in ms between two CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_mesh(torch, seed, card, model, params, reqs):
+    """The distributed layer on the card: a one-rank NCCL group (card 0
+    bound) and a (data 1, model 1) ``DeviceMesh``; under ``use_rules``
+    the serve phase's model on 4 of its prompts (tokens as without
+    rules, exact launches), granite-moe-1b-a400m's 8 x 1024 prefill
+    through ``moe_ep`` (48 ``all_to_all_single`` calls, logits bitwise
+    those without rules, both timed), ``compressed_allreduce_demo`` on a
+    (pod 1, data 1) mesh, and ``elastic_remesh`` of qwen2-0.5b's whole
+    training state onto a fresh mesh (one step after it bitwise one step
+    without it).  Returns the ruled runs' launches."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import elastic_remesh
+    from repro_torch.distributed.ranks import process_group
+    from repro_torch.distributed.sharding import logical_sharding, use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import AdamWConfig, compressed_allreduce_demo
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import (make_train_step, train_state_init,
+                                   train_state_specs)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as store, \
+            process_group(0, 1, store):
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_mesh((1, 1), ("data", "model"))
+        print(f"[mesh] NCCL group of 1 rank on {card}: mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, device type "
+              f"{mesh.device_type}")
+
+        # qwen2-0.5b served under rules: the serve phase's tokens
+        cfg = model.cfg
+        prompts = [r.prompt for r in reqs[:MESH_PROMPTS]]
+
+        def serve(rules: bool):
+            eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
+                              decode_chunk=4)
+            lat = []
+            eng.on_step_latency = lat.append
+            rs = [Request(rid=i, prompt=p, max_new=64)
+                  for i, p in enumerate(prompts)]
+            for r in rs:
+                eng.submit(r)
+            rd.launches = fa.launches = 0
+            t0 = time.perf_counter()
+            with use_rules(mesh) if rules else contextlib.nullcontext():
+                eng.run_until_drained()
+            torch.cuda.synchronize()
+            return ([list(r.out_tokens) for r in rs], len(lat),
+                    rd.launches, fa.launches, time.perf_counter() - t0)
+        free = serve(False)
+        toks, steps, n_rd, n_fa, wall = serve(True)
+        check(toks == free[0], "serve under rules: tokens differ from the "
+              "same prompts without rules")
+        check(all(len(t) == 64 for t in toks), "serve under rules: counts")
+        check(n_fa == len(prompts) * cfg.n_layers,
+              f"serve under rules: {n_fa} flash launches != "
+              f"{len(prompts)} x {cfg.n_layers}")
+        check(n_rd == steps * 4 * cfg.n_layers,
+              f"serve under rules: {n_rd} ragged decodes != {steps} steps "
+              f"x 4 x {cfg.n_layers}")
+        launches = {"flash_attention": n_fa, "ragged_decode": n_rd}
+        print(f"[mesh] {cfg.name} under rules: {len(prompts)} prompts x 64 "
+              f"tokens identical to the run without rules; launches "
+              f"{n_fa} flash ({cfg.n_layers} a prefill), {n_rd} ragged "
+              f"decode ({steps} steps x 4 x {cfg.n_layers}); wall "
+              f"{wall:.3f} s (without rules {free[4]:.3f} s)")
+
+        # granite-moe-1b-a400m: an 8,192-token prefill through moe_ep
+        gcfg = get_config("granite-moe-1b-a400m")
+        gm, gp = _init_family(torch, "mesh", gcfg, seed, card)
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, gcfg.vocab, MOE_PREFILL)
+                                  ).cuda()
+
+        def prefill():
+            with torch.no_grad():
+                return gm.prefill(gp, {"tokens": tokens})[0]
+
+        def ruled():
+            with use_rules(mesh):
+                return prefill()
+        prefill(), ruled()                       # warm-up, not counted
+        fa.launches = moe_mod.a2a_calls = 0
+        got, ms_rules = _events_ms(torch, ruled)
+        n_fa, n_a2a = fa.launches, moe_mod.a2a_calls
+        want, ms_free = _events_ms(torch, prefill)
+        ms_rules2 = _events_ms(torch, ruled)[1]
+        ms_free2 = _events_ms(torch, prefill)[1]
+        n_tok = MOE_PREFILL[0] * MOE_PREFILL[1]
+        check(n_a2a == 2 * gcfg.n_layers, f"moe_ep: {n_a2a} all_to_all "
+              f"calls != 2 x {gcfg.n_layers}")
+        check(n_fa == gcfg.n_layers, f"moe_ep prefill: {n_fa} flash "
+              f"launches != {gcfg.n_layers}")
+        check(bool(torch.isfinite(got).all()), "moe_ep: non-finite logits")
+        check(torch.equal(got, want), "moe_ep: logits under rules differ "
+              f"from the prefill without them (max abs "
+              f"{(got.float() - want.float()).abs().max().item()})")
+        launches["flash_attention"] += n_fa
+        print(f"[mesh] {gcfg.name} prefill {MOE_PREFILL[0]} x "
+              f"{MOE_PREFILL[1]} ({n_tok} tokens) through moe_ep: "
+              f"{n_a2a} all_to_all_single, {n_fa} flash, logits "
+              f"{tuple(got.shape)} bitwise equal to the prefill without "
+              f"rules; CUDA events: with rules {ms_rules:.3f} and "
+              f"{ms_rules2:.3f} ms, without {ms_free:.3f} and "
+              f"{ms_free2:.3f} ms ({card})")
+        del gm, gp, got, want
+        torch.cuda.empty_cache()
+
+        # compressed_allreduce_demo on (pod 1, data 1)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        x = torch.randn(DEMO_FLOATS, generator=gen, device="cuda")
+        pod_mesh = make_mesh((1, 1), ("pod", "data"))
+        out, ms = _events_ms(torch,
+                             lambda: compressed_allreduce_demo(x, pod_mesh))
+        step = float(x.abs().max()) / 127.0
+        err = float((out - x).abs().max())
+        check(out.shape == x.shape and bool(torch.isfinite(out).all())
+              and err <= step * (0.5 + 1e-4),
+              f"compressed_allreduce_demo: max abs error {err} against "
+              f"half the int8 step {step / 2}")
+        print(f"[mesh] compressed_allreduce_demo over {4 * DEMO_FLOATS} "
+              f"bytes of f32 on (pod 1, data 1): max abs error {err:.6g}, "
+              f"int8 step {step:.6g}; {ms:.3f} ms ({card})")
+        del x, out
+
+        # elastic_remesh of qwen2-0.5b's training state
+        tm = get_model(get_config(TRAIN_ARCH))
+        opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
+        gen.manual_seed(seed)
+        s0 = train_state_init(tm, gen, opt, device="cuda")
+        shapes = tree_map(lambda t: t.shape, s0)
+
+        def shardings(m):
+            return tree_map(lambda names, shape: logical_sharding(
+                m, names, shape), train_state_specs(tm), shapes)
+        data = SyntheticLMData(DataConfig(vocab=tm.cfg.vocab,
+                                          global_batch=TRAIN_BATCH,
+                                          seq_len=TRAIN_SEQ, seed=seed))
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(0).items()}
+        data.close()
+        n0 = (fa.launches, fa.bwd_launches)
+        want, _ = make_train_step(tm, opt)(s0, batch)
+        n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(s0))
+        placed = elastic_remesh(s0, shardings, mesh)
+        del s0
+        fresh = make_mesh((1, 1), ("data", "model"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = elastic_remesh(placed, shardings, fresh)
+        torch.cuda.synchronize()
+        t_remesh = time.perf_counter() - t0
+        del placed
+        check(all(d.device_mesh is fresh for d in tree_leaves(moved)),
+              "elastic_remesh: a leaf is not on the new mesh")
+        got, _ = make_train_step(tm, opt)(
+            tree_map(lambda d: d.to_local(), moved), batch)
+        fa.launches, fa.bwd_launches = n0
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+        check(differ == 0, f"elastic_remesh: one step after the move "
+              f"differs from one without it in {differ} of {len(pairs)} "
+              f"leaves")
+        print(f"[mesh] elastic_remesh of {TRAIN_ARCH}'s training state "
+              f"(params, m, v: {n_bytes} bytes) onto a fresh mesh in "
+              f"{t_remesh * 1e3:.1f} ms; one {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"step after it: all {len(pairs)} leaves bitwise equal to "
+              f"one step without the move ({card})")
+        del moved, got, want, batch
+    check(not dist.is_initialized(), "the process group outlived the phase")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the port's kernels' device functions, summed in the profile windows
 PROFILE_GROUPS = {"ragged_decode": ("decode_split_", "decode_combine"),
                   "flash_attention": ("flash_bf16_wgmma", "flash_f32"),
@@ -3599,6 +3819,7 @@ def main() -> int:
                     help="run the device and build phases and this part "
                          "alone, and print no result line")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 2
@@ -3636,6 +3857,7 @@ def main() -> int:
         fleet = phase_fleet(torch, card, model, params, reqs)
         region = phase_region(torch, args.seed, card, model, params, reqs)
         phase_audit(torch, card, model, params)
+        mesh = phase_mesh(torch, args.seed, card, model, params, reqs)
         del model, params
         # every serving path's launches: each phase's run counts from 0
         for path in (phase_moe(torch, args.seed, card, reqs),
@@ -3652,13 +3874,15 @@ def main() -> int:
         launches["matmul"] += phase_paper(torch, card)["matmul"]
         for kernel, n in phase_examples(torch, card).items():
             launches[kernel] += n
-        for kernel, n in (*fleet.items(), *region.items()):
+        for kernel, n in (*fleet.items(), *region.items(), *mesh.items()):
             launches[kernel] += n
         launches["stream_scale_add"] = scale_add_launches
         kernels = kernel_line(stats, launches)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f}"
+          f" s of wall time ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,3 +1,8 @@
-from .elastic import HeartbeatMonitor, PodPTT, StragglerRebalancer
+from .elastic import (HeartbeatMonitor, PodPTT, StragglerRebalancer,
+                      elastic_remesh)
+from .sharding import (AxisRules, constrain, current_rules, logical_sharding,
+                       set_rules, spec_for, use_rules)
 
-__all__ = ["HeartbeatMonitor", "PodPTT", "StragglerRebalancer"]
+__all__ = ["AxisRules", "constrain", "current_rules", "logical_sharding",
+           "set_rules", "spec_for", "use_rules", "HeartbeatMonitor",
+           "PodPTT", "StragglerRebalancer", "elastic_remesh"]

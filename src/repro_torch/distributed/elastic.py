@@ -6,19 +6,23 @@
 * :class:`StragglerRebalancer` — the paper's interference response
   (Fig. 8) applied to synchronous data parallelism: per-group step
   latencies shift the microbatch allocation toward fast groups.
-* :class:`HeartbeatMonitor` — a group silent for ``timeout`` is declared
-  dead; the fleet gateway runs one on its pump clock.
+* :class:`HeartbeatMonitor` + :func:`elastic_remesh` — a group silent for
+  ``timeout`` is declared dead (the fleet gateway runs one on its pump
+  clock); training re-places its state on a mesh of the survivors and
+  goes on (the deterministic data pipeline replays from the step).
 
-``RooflineLatencyModel`` (read from the JAX package's dry-run artifacts)
-and ``elastic_remesh`` (JAX shardings) are not carried over yet."""
+``RooflineLatencyModel`` (read from the dry-run's artifacts) is not
+carried over yet."""
 
 from __future__ import annotations
 
 import numpy as np
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..core.places import homogeneous_layout
 from ..core.ptt import PTT, PTTConfig
 from ..core.tracetable import CostModel, EMASearchMixin, TraceTable
+from ..tree import tree_map
 
 
 class PodPTT(PTT):
@@ -140,3 +144,17 @@ class HeartbeatMonitor:
             if g not in self.dead and now - self.last[g] > self.timeout:
                 self.dead.add(g)
         return self.dead
+
+
+def elastic_remesh(tree, shardings_fn, new_mesh):
+    """Re-place a tree of tensors onto a new (smaller or larger) mesh.
+    ``shardings_fn(mesh)`` returns the matching tree of shardings
+    (``sharding.NamedSharding``: a mesh and its placements).  Each leaf is
+    gathered whole (``full_tensor()`` of a ``DTensor``, a plain tensor as
+    it is) and distributed onto ``new_mesh``.  Every rank that holds a
+    shard of a leaf takes part (gathering is collective over the old
+    mesh); a rank outside ``new_mesh`` gets empty local shards."""
+    def move(x, s):
+        full = x.full_tensor() if isinstance(x, DTensor) else x
+        return distribute_tensor(full, s.mesh, s.placements)
+    return tree_map(move, tree, shardings_fn(new_mesh))

@@ -193,6 +193,101 @@ def param_tree(cfg: ModelConfig, model, leaf=lambda t: t) -> dict:
     return {k: tree(v) for k, v in _groups(cfg, model).items()}
 
 
+# ---------------------------------------------------------------------------
+# logical-axis specs: what every reference ``init`` returns beside params
+# ---------------------------------------------------------------------------
+
+def _norm_specs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {"scale": (None,)}
+
+
+def _attention_specs(cfg: ModelConfig) -> dict:
+    s = {"wq": ("fsdp", "qkv"), "wk": ("fsdp", "qkv"),
+         "wv": ("fsdp", "qkv"), "wo": ("qkv", "fsdp")}
+    if cfg.qkv_bias:
+        s.update(bq=("qkv",), bk=("qkv",), bv=("qkv",))
+    if cfg.qk_norm:
+        s.update(q_norm=(None,), k_norm=(None,))
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig) -> dict:
+    if cfg.act == "silu":
+        return {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+                "w_down": ("ff", "fsdp")}
+    return {"w_in": ("fsdp", "ff"), "b_in": ("ff",),
+            "w_out": ("ff", "fsdp"), "b_out": (None,)}
+
+
+def _embedding_specs(cfg: ModelConfig) -> dict:
+    s = {"embed": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("fsdp", "vocab")
+    return s
+
+
+_MOE_SPECS = {"router": ("fsdp", "experts"),
+              "w_gate": ("experts", "fsdp", None),
+              "w_up": ("experts", "fsdp", None),
+              "w_down": ("experts", None, "fsdp")}
+
+_SSM_SPECS = {"in_proj": ("fsdp", "ff"), "conv_w": (None, "ff"),
+              "conv_b": ("ff",), "dt_bias": (None,), "A_log": (None,),
+              "D": (None,), "norm": ("ff",), "out_proj": ("ff", "fsdp")}
+
+
+def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+    """One layer: ``ln1``, the mixer (``attn``, ``xattn`` or ``ssm``),
+    ``ln2`` and the FFN (``mlp`` or ``moe``)."""
+    return {"ln1": _norm_specs(cfg),
+            mixer: dict(_SSM_SPECS) if mixer == "ssm"
+            else _attention_specs(cfg),
+            "ln2": _norm_specs(cfg),
+            ffn: dict(_MOE_SPECS) if ffn == "moe" else _mlp_specs(cfg)}
+
+
+def _stacked_specs(tree: dict, axes: int) -> dict:
+    """Every leaf behind ``axes`` unsharded layer axes."""
+    return tree_map(lambda t: (None,) * axes + t, tree)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's logical-axis tree (``get_model(cfg).init(key)[1]``)
+    on :func:`param_tree`'s layout: a tuple of logical axis names (or
+    ``None``) at every leaf, one a tensor dim, stacked layer axes
+    unsharded (``None``)."""
+    out = {"tok": _embedding_specs(cfg)}
+    if cfg.family == "hybrid":
+        out["attn_layers"] = _stacked_specs(_layer_specs(cfg, "attn", "mlp"),
+                                            1)
+        out["mamba_moe"] = _stacked_specs(_layer_specs(cfg, "ssm", "moe"), 2)
+        out["mamba_dense"] = _stacked_specs(_layer_specs(cfg, "ssm", "mlp"),
+                                            2)
+    elif cfg.family == "vlm":
+        out["self_layers"] = _stacked_specs(_layer_specs(cfg, "attn", "mlp"),
+                                            2)
+        cross = _layer_specs(cfg, "xattn", "mlp")
+        cross.update(gate_attn=(), gate_mlp=())
+        out["cross_layers"] = _stacked_specs(cross, 1)
+    elif _alternating(cfg):
+        out["dense_layers"] = _stacked_specs(
+            _layer_specs(cfg, "attn", "mlp"), 2)
+        out["moe_layers"] = _stacked_specs(_layer_specs(cfg, "attn", "moe"),
+                                           1)
+    elif cfg.family == "ssm":
+        out["layers"] = _stacked_specs({"ln": _norm_specs(cfg),
+                                        "ssm": dict(_SSM_SPECS)}, 1)
+    else:
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        out["layers"] = _stacked_specs(_layer_specs(cfg, "attn", ffn), 1)
+        if cfg.family == "audio":
+            out["head"] = ("fsdp", "vocab")
+    out["ln_f"] = _norm_specs(cfg)
+    return out
+
+
 def bind_params(cfg: ModelConfig, model, tree: dict) -> None:
     """Point every parameter of ``model`` at its slice of ``tree`` (the
     reference's layout, the parameters' dtypes): afterwards the module's

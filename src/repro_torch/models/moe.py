@@ -26,6 +26,17 @@ function as its one-hot ``moe_dense`` oracle:
   step reads a value on the host, so decode stays free of host syncs and
   its launch count does not depend on the routing.
 
+Expert parallelism is the reference's ``moe_ep`` as a per-rank body
+(:func:`moe_ep`): under active sharding rules
+(``repro_torch.distributed.sharding.use_rules``) a prefill of more than
+4096 tokens splits into (batch x sequence) blocks over the mesh, each
+rank ranks its own block's copies at the block's capacity, two
+``all_to_all_single`` calls over the ``model`` axis carry copies to the
+rank that owns their expert column and back, and the blocks are
+all-gathered.  Capacity is per block, so where copies drop the result
+differs from the one-column function's, as the reference's does.
+Without rules every path is the one-column body.
+
 Two layouts, as in the reference:
 
 * ``moe_every == 1`` (both shipped MoE configs): every layer is an MoE
@@ -54,13 +65,19 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed.sharding import current_rules, mesh_shape
 from . import layers as L
 from . import transformer
+
+# all_to_all_single calls made by moe_ep, counted where they are made, as
+# the kernels' wrappers count their launches
+a2a_calls = 0
 
 
 def _check_layout(cfg: ModelConfig) -> None:
@@ -205,12 +222,14 @@ def sorted_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
     return torch.empty_like(ranks).scatter_(0, order, ranks)
 
 
-def expert_ffn(cfg: ModelConfig, p: MoE, xe: torch.Tensor) -> torch.Tensor:
-    """xe: (E, C, D) slot-major copies -> (E, C, D): one batched product
-    per projection over all experts."""
+def expert_ffn(cfg: ModelConfig, p: MoE, xe: torch.Tensor,
+               experts: slice = slice(None)) -> torch.Tensor:
+    """xe: (E', C, D) slot-major copies of the experts ``experts`` (all
+    by default) -> (E', C, D): one batched product per projection."""
     xe = xe.to(torch_dtype(cfg.compute_dtype))
-    h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    return torch.bmm(h, p.w_down)
+    h = F.silu(torch.bmm(xe, p.w_gate[experts])) * torch.bmm(
+        xe, p.w_up[experts])
+    return torch.bmm(h, p.w_down[experts])
 
 
 def capacity(cfg: ModelConfig, T: int, min_capacity: int = 0) -> int:
@@ -219,39 +238,129 @@ def capacity(cfg: ModelConfig, T: int, min_capacity: int = 0) -> int:
                          / cfg.n_experts))
 
 
-def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-              min_capacity: int = 0) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D) in x's dtype."""
-    B, S, D = x.shape
-    T, E, k = B * S, cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, T, min_capacity)
-    x2d = x.reshape(T, D)
-    vals, idx = route(cfg, p.router, x2d)
-    flat_e = idx.reshape(-1)                               # (T*k,)
+def local_dispatch(cfg: ModelConfig, x2d: torch.Tensor, idx: torch.Tensor,
+                   n_cols: int, cap: int):
+    """The reference's ``_local_dispatch``: per-destination send buffers
+    on one rank.  x2d: (N, D); idx: (N, k).  Experts are column-sharded:
+    expert e is local expert ``e % e_loc`` of column ``e // e_loc``, so
+    copy ``(e, pos)``'s slot ``(col * e_loc + le) * cap + pos`` is
+    ``e * cap + pos`` whatever ``n_cols``; a dropped copy takes the
+    overflow row ``E * cap``.  Returns (send (n_cols, e_loc, cap, D), slot
+    (N * k,), keep (N * k,))."""
+    N, D = x2d.shape
+    E, k = cfg.n_experts, cfg.top_k
+    flat_e = idx.reshape(-1)                               # (N*k,)
     pos = sorted_positions(flat_e, E)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, E * cap))      # overflow row
-    src = torch.arange(T * k, device=x.device) // k
-    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    src = torch.arange(N * k, device=x2d.device) // k
+    buf = torch.zeros((E * cap + 1, D), dtype=x2d.dtype, device=x2d.device)
     # kept slots are distinct; only the overflow row is written twice, and
-    # it is never read as an expert's input
+    # it is never sent
     buf[slot] = x2d[src]
-    ye = expert_ffn(cfg, p, buf[:E * cap].view(E, cap, D))
-    back = torch.cat([ye.reshape(E * cap, D),
-                      ye.new_zeros((1, D))])               # dropped -> 0
+    return buf[:E * cap].view(n_cols, E // n_cols, cap, D), slot, keep
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_to_all(split_axis=0, concat_axis=0)`` over ``group``:
+    block i of dim 0 goes to the group's rank i, block j of the result
+    came from rank j (autograd flows through it)."""
+    global a2a_calls
+    x = x.contiguous()           # empty_like keeps a transposed x's strides
+    out = dist_fn.all_to_all_single(torch.empty_like(x), x, group=group)
+    a2a_calls += 1
+    return out
+
+
+def moe_ep_local(cfg: ModelConfig, p: MoE, x_blk: torch.Tensor,
+                 n_cols: int = 1, col: int = 0, group=None,
+                 min_capacity: int = 0) -> torch.Tensor:
+    """The reference's ``_moe_ep_local``: one rank's block (b, s, D) ->
+    (b, s, D) in its dtype.  Capacity comes from the block's own token
+    count; the send buffer goes to the ``n_cols`` expert columns over
+    ``group`` (``None``: one column, no collective), this rank's experts
+    ``col * e_loc .. (col + 1) * e_loc`` run on what every column sent,
+    and the results go back the same way."""
+    b, s, D = x_blk.shape
+    N, E, k = b * s, cfg.n_experts, cfg.top_k
+    e_loc = E // n_cols
+    cap = capacity(cfg, N, min_capacity)
+    x2d = x_blk.reshape(N, D)
+    vals, idx = route(cfg, p.router, x2d)
+    send, slot, keep = local_dispatch(cfg, x2d, idx, n_cols, cap)
+    recv = send if group is None else _all_to_all(send, group)
+    # recv: (n_src, e_loc, cap, D) -> (e_loc, n_src * cap, D)
+    n_src = recv.shape[0]
+    xe = recv.transpose(0, 1).reshape(e_loc, n_src * cap, D)
+    ye = expert_ffn(cfg, p, xe, slice(col * e_loc, (col + 1) * e_loc))
+    ye = ye.reshape(e_loc, n_src, cap, D).transpose(0, 1)
+    back = ye if group is None else _all_to_all(ye, group)
+    back = torch.cat([back.reshape(E * cap, D),
+                      back.new_zeros((1, D))])             # dropped -> 0
     w = (vals.reshape(-1) * keep).to(back.dtype)
-    y = (back[slot] * w[:, None]).reshape(T, k, D).sum(dim=1)
-    return y.reshape(B, S, D).to(x.dtype)
+    y = (back[slot] * w[:, None]).reshape(N, k, D).sum(dim=1)
+    return y.reshape(b, s, D).to(x_blk.dtype)
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+              min_capacity: int = 0) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D) in x's dtype: the one-column body, which
+    computes the reference's ``moe_dense`` (and its ``moe_ep`` without
+    rules)."""
+    return moe_ep_local(cfg, p, x, min_capacity=min_capacity)
+
+
+def moe_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """Expert-parallel MoE, the reference's ``moe_ep``, as a per-rank body
+    over the active rules' ``DeviceMesh``: tokens sharded over (batch
+    axes x ``model``), experts over ``model``.  Rank (batch ``bi``, model
+    ``col``) takes the block ``(B / n_batch, S / n_cols)`` at ``(bi,
+    col)`` (the model axis shards the sequence, the reference's
+    ``pspec_x``), runs :func:`moe_ep_local` with two ``all_to_all_single``
+    over the ``model`` group, and all-gathers the blocks, so every rank
+    returns the global (B, S, D).  Without rules, the one-column body;
+    where the shapes do not divide the mesh or it has no ``model`` axis,
+    the dense function (the reference's fallbacks)."""
+    rules = current_rules()
+    if rules is None:
+        return moe_apply(cfg, p, x)
+    sizes = mesh_shape(rules.mesh)
+    B, S, D = x.shape
+    batch_axes = tuple(a for a in rules.rules.get("batch", ()) if a in sizes)
+    n_cols = sizes.get("model", 1)
+    n_batch = math.prod(sizes[a] for a in batch_axes)
+    if ("model" not in sizes or cfg.n_experts % n_cols or S % n_cols
+            or B % n_batch):
+        return moe_apply(cfg, p, x)
+    mesh = rules.mesh
+    col = mesh.get_local_rank("model")
+    bi = 0
+    for a in batch_axes:                 # row-major over the batch axes
+        bi = bi * sizes[a] + mesh.get_local_rank(a)
+    b, s = B // n_batch, S // n_cols
+    model = mesh.get_group("model")
+    y = moe_ep_local(cfg, p, x[bi * b:(bi + 1) * b, col * s:(col + 1) * s],
+                     n_cols, col, model)
+    y = torch.cat(dist_fn.all_gather(y, group=model), dim=1)
+    for a in reversed(batch_axes):       # minor axis first
+        y = torch.cat(dist_fn.all_gather(y, group=mesh.get_group(a)), dim=0)
+    return y
 
 
 def moe_ffn(cfg: ModelConfig, p: MoE, h: torch.Tensor,
             decode: bool = False) -> torch.Tensor:
-    """The MoE block in place of the dense MLP (the reference's
-    ``moe_apply(..., decode=decode)``): a decode step runs at no-drop
-    capacity (the batch's token count), so no copy is dropped."""
+    """The MoE block in place of the dense MLP, the reference's
+    ``moe_apply(..., decode=decode)``: a decode step runs at no-drop
+    capacity (the batch's token count), so no copy is dropped; more than
+    4096 tokens take :func:`moe_ep`, which is the one-column body unless
+    rules are active."""
     B, S = h.shape[:2]
-    return moe_apply(cfg, p, h, min_capacity=B * S if decode else 0)
+    if decode:
+        return moe_apply(cfg, p, h, min_capacity=B * S)
+    if B * S > 4096:
+        return moe_ep(cfg, p, h)
+    return moe_apply(cfg, p, h)
 
 
 # ---------------------------------------------------------------------------

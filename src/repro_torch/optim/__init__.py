@@ -1,6 +1,8 @@
 from .adamw import (AdamWConfig, adamw_init, adamw_update, cosine_lr,
                     global_norm)
-from .compression import ef_compress_grads, ef_init
+from .compression import (compressed_allreduce_demo, ef_compress_grads,
+                          ef_init)
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
-           "global_norm", "ef_compress_grads", "ef_init"]
+           "global_norm", "compressed_allreduce_demo", "ef_compress_grads",
+           "ef_init"]

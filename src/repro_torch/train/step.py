@@ -50,7 +50,8 @@ def train_state_init(model: Model, generator: torch.Generator,
     (the card unless the caller passes one; the generator must live
     there), the masters in ``param_dtype``, AdamW's zeros and, with
     ``compress_dcn``, the zero error-feedback residual.  Unlike the
-    reference it returns no sharding specs."""
+    reference it returns no sharding specs: :func:`train_state_specs`
+    gives them."""
     cfg = model.cfg
     dt = torch_dtype(cfg.param_dtype)
     params = convert.param_tree(cfg, model.init(generator, device),
@@ -59,6 +60,17 @@ def train_state_init(model: Model, generator: torch.Generator,
     if compress_dcn:
         state["ef"] = ef_init(params)
     return state
+
+
+def train_state_specs(model: Model, compress_dcn: bool = False) -> dict:
+    """The logical-axis tree of :func:`train_state_init`'s state, the
+    reference's ``state_specs``: AdamW's moments (and the error-feedback
+    residual) as the parameters, the step count a scalar."""
+    specs = convert.param_specs(model.cfg)
+    out = {"params": specs, "opt": {"m": specs, "v": specs, "step": ()}}
+    if compress_dcn:
+        out["ef"] = specs
+    return out
 
 
 def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
