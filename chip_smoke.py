@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, is right, and serves.
 
-    python3 chip_smoke.py [--seed N] [--only flash_bwd]
+    python3 chip_smoke.py [--seed N] [--only flash_bwd|mesh]
 
 (``--only flash_bwd`` runs the device and build phases and the flash
-backward's cases alone, with a profile of its kernels, and prints no
-result line.)
+backward's cases alone, with a profile of its kernels; ``--only mesh``
+the device, build, serve and mesh phases; neither prints a result
+line.)
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -240,8 +241,13 @@ After the audit, the mesh phase (21): a one-rank NCCL process group
 (``repro_torch.distributed.ranks.process_group``, card 0 bound; a failure
 to initialise fails the phase) and a (data 1, model 1) ``DeviceMesh``;
 under ``use_rules`` the serve phase's model on 4 of its prompts, 64 new
-tokens each (tokens identical to the same prompts without rules, 24
-flash launches a prefill, 4 x 24 ragged decodes a step),
+tokens each, through the sharded dense layers (``distributed/tp.py``:
+every all-gather, reduce-scatter and all-reduce at group size 1; tokens
+identical to the same prompts without rules, 24 flash launches a
+prefill, 4 x 24 ragged decodes a step, the cost counter's kernel calls
+equal to them, the collectives printed by kind), one qwen2-0.5b 8 x 1024
+train step under rules (loss within 1e-6 relative of the step without
+them, 48 flash and 24 flash-backward launches),
 granite-moe-1b-a400m's 8 x 1024 prefill through ``moe_ep`` (2 x 24
 ``all_to_all_single`` calls, 24 flash launches, logits bitwise equal to
 the prefill without rules, both timed with CUDA events),
@@ -249,7 +255,16 @@ the prefill without rules, both timed with CUDA events),
 mesh (within half the int8 step of ``x``) and ``elastic_remesh`` of
 qwen2-0.5b's training state (params, m, v: 5.9 GB of f32) onto a fresh
 mesh, timed, after which one 8 x 1024 train step is bitwise equal to one
-without the move; the group is destroyed before the next phase.
+without the move; the group is destroyed before the next phase.  Then,
+without a group: ``ragged_decode``'s log-sum-exp output against its
+plain version (B 8, Smax 2048, 14/2 heads, positions mixed) and two
+half-cache calls merged by it against one whole-cache call; the cost
+counter (``distributed/cost.py``) over a real decode chunk and prefill
+of the serve model, its kernel calls equal to the launch counters and
+its FLOPs to a fake-tensor trace of the same steps; the H100 roofline's
+terms for the train step and a decode step beside their measured device
+times; and ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b x
+train_4k x single in a subprocess (exit 0, its wall time).
 
 The kernels phase also holds the runtime's kernels and ``stream_scale_add``
 against their plain versions (``torch.matmul``, ``dst.copy_(src)``, the
@@ -266,6 +281,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -3518,6 +3534,266 @@ def _events_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def _decode_lse(torch, rd, card):
+    """``ragged_decode``'s log-sum-exp output on the card: against the
+    plain version (B=8, Smax 2048, qwen2's 14/2 heads, bf16, positions
+    mixed), and the merge of two half-cache calls by it against one
+    whole-cache call; a slot with no row in a half gives 0 and -inf."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    B, Smax, Hq, Hkv, hd, half = 8, 2048, 14, 2, 64, 1024
+    bf = torch.bfloat16
+    q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(bf)
+    k = torch.randn(B, Smax, Hkv, hd, generator=gen, device="cuda").to(bf)
+    v = torch.randn(B, Smax, Hkv, hd, generator=gen, device="cuda").to(bf)
+    pos = torch.tensor([0, 5, half - 1, half, 1500, Smax - 1, 700, 1300],
+                       dtype=torch.int32, device="cuda")
+    n0 = rd.launches
+    out, lse = rd.ragged_decode_attention(q, k, v, pos, lse=True)
+    ref, ref_lse = rd.ragged_decode_ref(q, k, v, pos, lse=True)
+    whole = rd.ragged_decode_attention(q, k, v, pos)
+    err = (out - ref).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    check(torch.equal(out, whole), "ragged_decode: the output with the "
+          "log-sum-exp differs from the output without it")
+    check(err <= 2e-2 and err_lse <= 1e-3, f"ragged_decode lse: max abs "
+          f"err {err} (limit 2e-2), lse {err_lse} (limit 1e-3)")
+    parts = []
+    for lo in (0, half):
+        kc = k[:, lo:lo + half].contiguous()
+        vc = v[:, lo:lo + half].contiguous()
+        parts.append(rd.ragged_decode_attention(q, kc, vc, pos - lo,
+                                                lse=True))
+    (o1, l1), (o2, l2) = parts
+    empty = pos < half                    # no row in the second half
+    check(bool((o2[empty] == 0).all()) and bool(torch.isneginf(
+        l2[empty]).all()) and bool(torch.isfinite(o2).all()),
+          "ragged_decode: a slot with no live row must give 0 and -inf")
+    m = torch.maximum(l1, l2)
+    w1, w2 = torch.exp(l1 - m), torch.exp(l2 - m)
+    merged = (w1[..., None] * o1 + w2[..., None] * o2) / (w1 + w2)[..., None]
+    err_m = (merged - whole).abs().max().item()
+    check(err_m <= 2e-2, f"ragged_decode: two halves merged by the "
+          f"log-sum-exp differ from the whole cache by {err_m} (limit 2e-2)")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    ms = time_ms(torch, lambda: rd.ragged_decode_attention(q, k, v, pos),
+                 flush)
+    ms_lse = time_ms(torch, lambda: rd.ragged_decode_attention(
+        q, k, v, pos, lse=True), flush)
+    rd.launches = n0                        # comparison launches
+    print(f"[mesh] ragged_decode log-sum-exp, B={B} Smax={Smax} {Hq}/{Hkv} "
+          f"hd {hd} bf16, pos {pos.tolist()}: out max abs err {err:.3g} "
+          f"(limit 2e-2), lse {err_lse:.3g} (limit 1e-3), bitwise the "
+          f"output without it; halves of {half} rows merged by it against "
+          f"the whole cache: {err_m:.3g} (limit 2e-2), slots before the "
+          f"second half 0 and -inf there; {ms:.4f} ms without, "
+          f"{ms_lse:.4f} ms with the lse ({card})")
+
+
+def _train_under_rules(torch, tm, opt, s0, batch, mesh, loss_free, card):
+    """One qwen2-0.5b 8 x 1024 step under rules on the one-rank mesh,
+    through the sharded dense layers: the loss within 1e-6 of the step
+    without rules, launches exact, collectives counted.  Returns the cost
+    counter's totals."""
+    from repro_torch.distributed.cost import CostCounter
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import local_train_state
+    L = tm.cfg.n_layers
+    with use_rules(mesh):
+        local = local_train_state(tm, s0)
+        step = make_train_step(tm, opt)
+        fa.launches = fa.bwd_launches = 0
+        with CostCounter() as c:
+            got, m = step(local, batch)
+        torch.cuda.synchronize()
+    n = (fa.launches, fa.bwd_launches)
+    loss = float(m["loss"])
+    rel = abs(loss - loss_free) / abs(loss_free)
+    check(rel <= 1e-6, f"train under rules: loss {loss} against {loss_free} "
+          f"without rules ({rel:.3g} relative, limit 1e-6)")
+    check(n == (2 * L, L), f"train under rules: launches {n} != "
+          f"{(2 * L, L)}")
+    check(c.calls == {"flash_attention": 2 * L, "flash_attention_bwd": L},
+          f"train under rules: counter calls {c.calls}")
+    print(f"[mesh] {tm.cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} train step "
+          f"under rules (FSDP x tensor x sequence parallel at group size "
+          f"1): loss {loss:.6f} against {loss_free:.6f} without rules "
+          f"({rel:.3g} relative, limit 1e-6); launches {n[0]} flash, "
+          f"{n[1]} flash backward; collectives by kind "
+          f"{c.totals.coll_counts} ({card})")
+    del local, got
+    return c.totals, c.peak_bytes
+
+
+def _train_step_times(torch, tm, opt, batch, seed, card):
+    """(device busy ms, wall ms) of one qwen2-0.5b step without rules,
+    the second of two, under the profiler."""
+    from repro_torch.train import make_train_step, train_state_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = train_state_init(tm, gen, opt, device="cuda")
+    step = make_train_step(tm, opt)
+    state, _ = step(state, batch)
+    prof = _profile_window(torch, lambda: step(state, batch),
+                           "train step 8 x 1024 (roofline)", card, top=0)
+    check(prof is not None, "the train step's profile saw no device time")
+    return prof["busy"] * 1e3, prof["wall"] * 1e3
+
+
+def _fake_cost(cfg, run):
+    """The cost counter over ``run(model, params)`` traced on fake
+    tensors: no device, no memory."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import torch
+    from repro_torch.distributed.cost import CostCounter
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    with FakeTensorMode():
+        params = model.init(torch.Generator(), "cpu")
+        with torch.no_grad(), CostCounter() as c:
+            run(model, params, "cpu")
+    return c
+
+
+COUNTED_DECODE = (8, 2048, 4)  # slots, Smax, tokens of the counted chunk
+
+
+def _decode_inputs(torch, model, dev):
+    """(token, pos, cache) of the counted decode chunk."""
+    B, Smax, _ = COUNTED_DECODE
+    cache = {n: torch.zeros(s, dtype=dt, device=dev)
+             for n, (s, dt) in model.cache_spec(B, Smax).items()}
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    pos = torch.arange(1000, 1000 + 128 * B, 128, dtype=torch.int32,
+                       device=dev)
+    return tok, pos, cache
+
+
+def _decode_and_prefill(torch, model) -> dict:
+    """``run(model, params, device)`` for an 8-slot, 4-token decode chunk
+    over a 2048-row cache (slots at positions 1000 to 1896) and for a
+    1,024-token prefill."""
+    k = COUNTED_DECODE[2]
+
+    def decode(model, params, dev):
+        return model.decode_fused(params, *_decode_inputs(torch, model, dev),
+                                  k)
+
+    def prefill(model, params, dev):
+        toks = torch.arange(1024, device=dev)[None] % model.cfg.vocab
+        return model.prefill(params, {"tokens": toks})
+    return {"decode": decode, "prefill": prefill}
+
+
+def _counter_against_card(torch, model, params, card):
+    """The cost counter over one real decode chunk (8 slots, Smax 2048, 4
+    tokens) and one 1,024-token prefill of qwen2-0.5b on the card: its
+    kernel calls equal the launch counters, its FLOPs the fake trace's of
+    the same steps.  Returns the decode chunk's totals and device ms."""
+    from repro_torch.distributed.cost import CostCounter
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    cfg, k = model.cfg, COUNTED_DECODE[2]
+    runs = _decode_and_prefill(torch, model)
+    out = {}
+    for name, run, kernel, mod in (("decode", runs["decode"],
+                                    "ragged_decode", rd),
+                                   ("prefill", runs["prefill"],
+                                    "flash_attention", fa)):
+        mod.launches = 0
+        with torch.no_grad(), CostCounter() as c:
+            run(model, params, "cuda")
+        torch.cuda.synchronize()
+        fake = _fake_cost(cfg, run)
+        check(c.calls == {kernel: mod.launches} == fake.calls,
+              f"counter {name}: calls {c.calls} on the card, launches "
+              f"{mod.launches}, fake trace {fake.calls}")
+        rel = abs(c.totals.flops - fake.totals.flops) / fake.totals.flops
+        check(rel <= 1e-9, f"counter {name}: {c.totals.flops} FLOPs on the "
+              f"card against {fake.totals.flops} traced on fake tensors")
+        out[name] = c.totals
+        print(f"[mesh] cost counter over one {name} of {cfg.name} on the "
+              f"card: {c.calls} kernel calls = the launch counter; "
+              f"{c.totals.flops:.6g} FLOPs, equal to the fake trace's "
+              f"{fake.totals.flops:.6g}; {c.totals.bytes:.6g} bytes ({card})")
+    tok, pos, cache = _decode_inputs(torch, model, "cuda")
+    with torch.no_grad():
+        model.decode_fused(params, tok, pos, cache, k)          # warm
+        prof = _profile_window(torch, lambda: model.decode_fused(
+            params, tok, pos, cache, k), f"decode chunk of {k} tokens, 8 "
+            f"slots (roofline)", card, top=0)
+    check(prof is not None, "the decode chunk's profile saw no device time")
+    return out["decode"], prof["busy"] * 1e3 / k, prof["wall"] * 1e3 / k, k
+
+
+def _roofline_beside(tcfg, train, step_ms, scfg, decode, card):
+    """The H100 roofline's terms for the 8 x 1024 train step and a dense
+    decode step (8 slots, Smax 2048, one token) beside the measured
+    times."""
+    from repro_torch.distributed import roofline as R
+    from repro_torch.distributed.cost import CostTotals
+    (totals, peak), (dev_ms, wall_ms) = train, step_ms
+    rf = R.build_from_walker(tcfg.name, "8x1024", "card", 1, totals, tcfg,
+                             peak, R.model_flops_for(tcfg, "train",
+                                                     TRAIN_BATCH, TRAIN_SEQ))
+    print(f"[roofline] {tcfg.name} train step {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"(H100 SXM constants: {R.PEAK_FLOPS:.3g} bf16 FLOP/s, "
+          f"{R.HBM_BW:.3g} B/s): counted {rf.flops_dev:.6g} FLOPs, "
+          f"{rf.bytes_dev:.6g} bytes; t_compute {rf.t_compute * 1e3:.3f} "
+          f"ms, t_memory {rf.t_memory * 1e3:.3f} ms, t_collective "
+          f"{rf.t_collective * 1e3:.3f} ms; bound {rf.step_time * 1e3:.3f} "
+          f"ms ({rf.dominant}); model_flops {rf.model_flops:.6g} = "
+          f"{rf.model_flops / R.PEAK_FLOPS * 1e3:.3f} ms at peak; measured "
+          f"{dev_ms:.3f} ms of device busy time, {wall_ms:.3f} ms wall "
+          f"(profiler): bound / busy {rf.step_time * 1e3 / dev_ms:.4f} "
+          f"({card})")
+    dtot, d_ms, d_wall, k = decode
+    per = CostTotals()
+    per.add(dtot, 1.0 / k)
+    rf = R.build_from_walker(scfg.name, "decode 8x2048", "card", 1, per,
+                             scfg, 0, R.model_flops_for(scfg, "decode", 8,
+                                                        2048))
+    analytic = R.decode_bytes_for(scfg, 8, 2048, 1)
+    print(f"[roofline] {scfg.name} decode step (8 slots, Smax 2048, one "
+          f"token): counted {rf.flops_dev:.6g} FLOPs, {rf.bytes_dev:.6g} "
+          f"bytes a token; t_compute {rf.t_compute * 1e3:.4f} ms, t_memory "
+          f"{rf.t_memory * 1e3:.4f} ms, t_collective 0; bound "
+          f"{rf.step_time * 1e3:.4f} ms ({rf.dominant}); analytic decode "
+          f"bytes {analytic:.6g} = {analytic / R.HBM_BW * 1e3:.4f} ms; "
+          f"measured {d_ms:.4f} ms of device busy time and {d_wall:.4f} ms "
+          f"wall a token (profiler, a {k}-token chunk / {k}): bound / busy "
+          f"{rf.step_time * 1e3 / d_ms:.4f} ({card})")
+
+
+def _dryrun_cli(card):
+    """``python -m repro_torch.launch.dryrun`` for one cell in a
+    subprocess on this machine (no JAX): exit 0, its wall time."""
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", "qwen2-0.5b", "--shape", "train_4k",
+                            "--mesh", "single", "--out", out],
+                           capture_output=True, text=True, env=env,
+                           timeout=300)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"dryrun CLI exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        rec = json.load(open(os.path.join(
+            out, "qwen2-0.5b__train_4k__single.json")))
+    check(rec["status"] == "ok", f"dryrun cell {rec.get('status')}")
+    rf = rec["roofline"]
+    print(f"[mesh] dryrun CLI qwen2-0.5b x train_4k x single (fake 256-rank "
+          f"group, no JAX) exit 0 in {wall:.2f} s: flops/dev "
+          f"{rf['flops_dev']:.6g}, bytes/dev {rf['bytes_dev']:.6g}, wire "
+          f"{rf['wire_ici']:.6g}, peak {rec['memory']['peak_bytes']:.6g} "
+          f"bytes, dominant {rf['dominant']} ({card})")
+
+
 def phase_mesh(torch, seed, card, model, params, reqs):
     """The distributed layer on the card: a one-rank NCCL group (card 0
     bound) and a (data 1, model 1) ``DeviceMesh``; under ``use_rules``
@@ -3536,6 +3812,7 @@ def phase_mesh(torch, seed, card, model, params, reqs):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.distributed import elastic_remesh
+    from repro_torch.distributed.cost import CostCounter
     from repro_torch.distributed.ranks import process_group
     from repro_torch.distributed.sharding import logical_sharding, use_rules
     from repro_torch.kernels.flash_attention import ops as fa
@@ -3547,9 +3824,11 @@ def phase_mesh(torch, seed, card, model, params, reqs):
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.train import (make_train_step, train_state_init,
                                    train_state_specs)
+    from repro_torch.train.step import local_train_state
     from repro_torch.tree import tree_leaves, tree_map
 
     launches = {}
+    _decode_lse(torch, rd, card)
     with tempfile.TemporaryDirectory() as store, \
             process_group(0, 1, store):
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
@@ -3589,12 +3868,24 @@ def phase_mesh(torch, seed, card, model, params, reqs):
         check(n_rd == steps * 4 * cfg.n_layers,
               f"serve under rules: {n_rd} ragged decodes != {steps} steps "
               f"x 4 x {cfg.n_layers}")
+        n0 = (rd.launches, fa.launches)
+        with use_rules(mesh), torch.no_grad():
+            coll = {}
+            for name, run in _decode_and_prefill(torch, model).items():
+                with CostCounter() as counter:
+                    run(model, params, "cuda")
+                coll[name] = counter.totals.coll_counts
+        rd.launches, fa.launches = n0
         launches = {"flash_attention": n_fa, "ragged_decode": n_rd}
-        print(f"[mesh] {cfg.name} under rules: {len(prompts)} prompts x 64 "
+        print(f"[mesh] {cfg.name} under rules, through the sharded dense "
+              f"layers (every collective at group size 1): "
+              f"{len(prompts)} prompts x 64 "
               f"tokens identical to the run without rules; launches "
               f"{n_fa} flash ({cfg.n_layers} a prefill), {n_rd} ragged "
               f"decode ({steps} steps x 4 x {cfg.n_layers}); wall "
-              f"{wall:.3f} s (without rules {free[4]:.3f} s)")
+              f"{wall:.3f} s (without rules {free[4]:.3f} s); collectives "
+              f"by kind of an 8-slot 4-token decode chunk {coll['decode']} "
+              f"and of a 1,024-token prefill {coll['prefill']}")
 
         # granite-moe-1b-a400m: an 8,192-token prefill through moe_ep
         gcfg = get_config("granite-moe-1b-a400m")
@@ -3672,7 +3963,11 @@ def phase_mesh(torch, seed, card, model, params, reqs):
                  for k, v in data.batch_at(0).items()}
         data.close()
         n0 = (fa.launches, fa.bwd_launches)
-        want, _ = make_train_step(tm, opt)(s0, batch)
+        want, wm = make_train_step(tm, opt)(s0, batch)
+        fa.launches, fa.bwd_launches = n0
+        train_totals = _train_under_rules(torch, tm, opt, s0, batch, mesh,
+                                          float(wm["loss"]), card)
+        fa.launches, fa.bwd_launches = n0
         n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(s0))
         placed = elastic_remesh(s0, shardings, mesh)
         del s0
@@ -3698,9 +3993,17 @@ def phase_mesh(torch, seed, card, model, params, reqs):
               f"{t_remesh * 1e3:.1f} ms; one {TRAIN_BATCH} x {TRAIN_SEQ} "
               f"step after it: all {len(pairs)} leaves bitwise equal to "
               f"one step without the move ({card})")
-        del moved, got, want, batch
+        del moved, got, want
+        step_ms = _train_step_times(torch, tm, opt, batch, seed, card)
+        fa.launches, fa.bwd_launches = n0
+        del batch
     check(not dist.is_initialized(), "the process group outlived the phase")
     torch.cuda.empty_cache()
+    n0 = (rd.launches, fa.launches)
+    decode = _counter_against_card(torch, model, params, card)
+    rd.launches, fa.launches = n0
+    _roofline_beside(tm.cfg, train_totals, step_ms, model.cfg, decode, card)
+    _dryrun_cli(card)
     return launches
 
 
@@ -3815,9 +4118,10 @@ def phase_profile(torch, np, model, params, reqs, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("flash_bwd",),
+    ap.add_argument("--only", choices=("flash_bwd", "mesh"),
                     help="run the device and build phases and this part "
-                         "alone, and print no result line")
+                         "alone (mesh: after the serve phase that builds "
+                         "its model), and print no result line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -3842,6 +4146,12 @@ def main() -> int:
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         if args.only == "flash_bwd":
             phase_flash_bwd(torch, args.seed, peaks, card)
+            return 0
+        if args.only == "mesh":
+            _, model, params, reqs = phase_serve(torch, args.seed, card)
+            phase_mesh(torch, args.seed, card, model, params, reqs)
+            print(f"[smoke] --only mesh passed in "
+                  f"{time.perf_counter() - t_start:.1f} s ({card})")
             return 0
         stats = phase_kernels(torch, args.seed, peaks)
         train = phase_train(torch, args.seed, card)

@@ -1,9 +1,10 @@
 """Architecture configuration schema (the PyTorch port's copy of
 ``repro.configs.base``).
 
-``input_specs`` is not carried over: it builds JAX ``ShapeDtypeStruct``
-stand-ins and arrives with the dry-run port.  :func:`torch_dtype` maps the
-``param_dtype`` / ``compute_dtype`` strings to torch dtypes."""
+:func:`input_specs` gives the inputs of a shape cell as tensors on the
+``meta`` device (the reference's ``ShapeDtypeStruct`` stand-ins).
+:func:`torch_dtype` maps the ``param_dtype`` / ``compute_dtype`` strings
+to torch dtypes."""
 
 from __future__ import annotations
 
@@ -155,6 +156,33 @@ def shape_skip_reason(cfg: ModelConfig, shape: str) -> str | None:
     if shape == "long_500k" and cfg.family not in ("ssm", "hybrid"):
         return "long_500k needs sub-quadratic attention (pure full-attention arch)"
     return None
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict[str, torch.Tensor]:
+    """Stand-ins on the ``meta`` device (no memory) for every model input
+    of a shape cell: the reference's keys, shapes and dtypes."""
+    s = SHAPES[shape]
+    B, S = s["global_batch"], s["seq_len"]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    i32, bf16 = torch.int32, torch.bfloat16
+    specs: dict[str, torch.Tensor] = {}
+    if s["kind"] in ("train", "prefill"):
+        if cfg.family == "audio":
+            # frontend stub: precomputed frame embeddings
+            specs["frames"] = meta((B, S, cfg.d_model), bf16)
+        else:
+            specs["tokens"] = meta((B, S), i32)
+        if s["kind"] == "train":
+            specs["labels"] = meta((B, S), i32)
+        if cfg.family == "vlm":
+            specs["image_embeds"] = meta((B, cfg.n_image_tokens,
+                                          cfg.d_model), bf16)
+    else:  # decode: one new token against a seq_len cache
+        specs["token"] = meta((B, 1), i32)
+        specs["pos"] = meta((), i32)
+    return specs
 
 
 #: The narrowest head the card's attention kernels take (ragged_decode and

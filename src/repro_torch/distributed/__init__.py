@@ -1,8 +1,9 @@
-from .elastic import (HeartbeatMonitor, PodPTT, StragglerRebalancer,
-                      elastic_remesh)
+from .elastic import (HeartbeatMonitor, PodPTT, RooflineLatencyModel,
+                      StragglerRebalancer, elastic_remesh)
 from .sharding import (AxisRules, constrain, current_rules, logical_sharding,
                        set_rules, spec_for, use_rules)
 
 __all__ = ["AxisRules", "constrain", "current_rules", "logical_sharding",
            "set_rules", "spec_for", "use_rules", "HeartbeatMonitor",
-           "PodPTT", "StragglerRebalancer", "elastic_remesh"]
+           "PodPTT", "RooflineLatencyModel", "StragglerRebalancer",
+           "elastic_remesh"]

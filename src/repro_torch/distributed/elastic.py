@@ -11,10 +11,14 @@
   clock); training re-places its state on a mesh of the survivors and
   goes on (the deterministic data pipeline replays from the step).
 
-``RooflineLatencyModel`` (read from the dry-run's artifacts) is not
-carried over yet."""
+:class:`RooflineLatencyModel` seeds simulated group latencies from the
+port's dry-run artifacts (``launch/dryrun.py``), so pod-scale scheduling
+decisions follow the traced program's own cost structure."""
 
 from __future__ import annotations
+
+import dataclasses
+import json
 
 import numpy as np
 from torch.distributed.tensor import DTensor, distribute_tensor
@@ -23,6 +27,37 @@ from ..core.places import homogeneous_layout
 from ..core.ptt import PTT, PTTConfig
 from ..core.tracetable import CostModel, EMASearchMixin, TraceTable
 from ..tree import tree_map
+
+
+@dataclasses.dataclass
+class RooflineLatencyModel:
+    """t(width) = t_fixed + t_scale / width + t_coll * (width-1)/width,
+    anchored at the dry-run mesh width.  Compute+memory terms scale down
+    with width (more chips per replica); the collective term grows toward
+    its ring asymptote."""
+
+    t_scale: float
+    t_fixed: float
+    t_coll: float
+    anchor_width: int
+
+    @classmethod
+    def from_artifact(cls, path: str) -> "RooflineLatencyModel":
+        with open(path) as f:
+            rec = json.load(f)
+        r = rec["roofline"]
+        # anchor at the mesh the artifact was traced for; 16 is only a
+        # fallback for a record without "chips"
+        w0 = int(rec.get("chips") or 16)
+        # a single-chip artifact carries no collective-scaling information
+        # (its ring term is identically zero)
+        t_coll = (r["t_collective"] / ((w0 - 1) / w0)) if w0 > 1 else 0.0
+        return cls(t_scale=(r["t_compute"] + r["t_memory"]) * w0,
+                   t_fixed=0.0, t_coll=t_coll, anchor_width=w0)
+
+    def latency(self, width: int) -> float:
+        w = max(1, width)
+        return self.t_fixed + self.t_scale / w + self.t_coll * (w - 1) / w
 
 
 class PodPTT(PTT):

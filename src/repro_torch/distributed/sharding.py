@@ -24,9 +24,11 @@ sizes from ``mesh_dim_names`` (:func:`mesh_shape`), and also take a plain
 
 :func:`constrain` is not threaded through the model code: in eager
 PyTorch an activation's layout comes from the collectives a layer runs
-itself, not from annotations a compiler reads.  With rules it
-redistributes a ``DTensor`` to its spec's placements and returns a plain
-tensor unchanged.
+itself (``distributed/tp.py``: under rules on a ``DeviceMesh`` the dense
+layers run each rank's shards and run their own all-gathers,
+reduce-scatters and all-reduces).  With rules it redistributes a
+``DTensor`` to its spec's placements and returns a plain tensor
+unchanged.
 
 The reference's ``shard_map_compat`` has no counterpart.  Its two users
 run here as explicit per-rank bodies over the mesh's process groups,
@@ -105,6 +107,10 @@ class AxisRules:
     mesh: object                  # a DeviceMesh or {axis name: size}
     rules: dict[str, tuple[str, ...]]
     fallbacks: list[str] = dataclasses.field(default_factory=list)
+    # what ``distributed.tp`` derives from the rules once: the rank's
+    # layout and each (names, shape)'s spec
+    cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
 
     def axes_for(self, name: LogicalAxis, dim: int) -> tuple[str, ...] | None:
         """Mesh axes for one logical axis, with divisibility fallback."""

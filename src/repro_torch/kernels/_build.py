@@ -105,7 +105,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ragged_decode_launch.argtypes = [
         I,                 # dtype code (see dtype_code)
-        P, P, P, P, P, P,  # q, k, v, pos, out, scratch
+        P, P, P, P, P,     # q, k, v, pos, out
+        P, P,              # lse (null: not written), scratch
         I, I, I, I, I,     # B, Smax, Hkv, rep, hd
         I, I,              # n_split, L (ops.split_geometry)
         F,                 # scale

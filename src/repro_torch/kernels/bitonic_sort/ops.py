@@ -23,7 +23,7 @@ import threading
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from .ref import sort_rows_ref
 
 launches = 0
@@ -71,11 +71,24 @@ def sort_plan(n: int) -> SortPlan:
     return SortPlan(p=p, lb=lb, C=C)
 
 
+def _sort_ops(x: torch.Tensor) -> int:
+    """Compare-exchanges of a bitonic network over each padded row."""
+    k = max(1, (x.shape[1] - 1).bit_length())
+    return x.shape[0] * (1 << k) // 2 * k * (k + 1) // 2
+
+
 def sort_rows(x: torch.Tensor, *,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """Ascending sort of each row of x (rows, n), float32 or int32, rows of
     unit stride; float rows must hold no NaN.  Returns (rows, n), in
     ``out`` if given."""
+    return _priced.run("bitonic_sort", lambda: _sort_ops(x), (x,),
+                       lambda: _sort_rows(x, out=out))
+
+
+def _sort_rows(x: torch.Tensor, *,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The body of :func:`sort_rows`."""
     if x.dim() != 2:
         raise ValueError(f"sort_rows takes (rows, n); got {tuple(x.shape)}")
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype):

@@ -36,7 +36,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from .ref import attention_ref, attention_ref_backward, attention_ref_lse
 
 launches = 0
@@ -81,20 +81,35 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
                             lse: bool = False):
     """(out, lse or None): the forward, with the rows' float32 (B, Hq, Sq)
     log-sum-exp (natural-log units) when ``lse``."""
-    if q.device.type == "cpu":
-        if lse:
-            return attention_ref_lse(q, k, v, causal=causal)
-        return attention_ref(q, k, v, causal=causal), None
-    return _launch(q, k, v, causal, lse)
+    def body():
+        if q.device.type == "cpu":
+            if lse:
+                return attention_ref_lse(q, k, v, causal=causal)
+            return attention_ref(q, k, v, causal=causal), None
+        return _launch(q, k, v, causal, lse)
+    return _priced.run("flash_attention", lambda: _flops(q, k, causal, 4),
+                       (q, k, v), body)
 
 
 def flash_attention_backward(q, k, v, o, dO, lse, *, causal: bool = True):
     """(dq, dk, dv) of the attention whose forward gave ``o`` and ``lse``,
     for the output's gradient ``dO``.  dq, dk and dv come in the layout of
     q, k and v: (B, H, S, hd) views of (B, S, H, hd) memory."""
-    if q.device.type == "cpu":
-        return attention_ref_backward(q, k, v, o, dO, lse, causal=causal)
-    return _launch_bwd(q, k, v, o, dO, lse, causal)
+    def body():
+        if q.device.type == "cpu":
+            return attention_ref_backward(q, k, v, o, dO, lse, causal=causal)
+        return _launch_bwd(q, k, v, o, dO, lse, causal)
+    # S and dP recomputed, dV, dQ and dK: five products of the forward's two
+    return _priced.run("flash_attention_bwd",
+                       lambda: _flops(q, k, causal, 10),
+                       (q, k, v, o, dO, lse), body)
+
+
+def _flops(q, k, causal: bool, per_pair: int) -> int:
+    """``per_pair`` operations per head dim, head and (query, key) pair."""
+    B, Hq, Sq, hd = q.shape
+    return (per_pair * B * Hq * hd
+            * _priced.attention_pairs(Sq, k.shape[2], causal))
 
 
 def check_tma(t: torch.Tensor, name: str) -> None:

@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from .ref import matmul_ref
 
 launches = 0
@@ -71,6 +71,16 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     """x: (M, K), y: (K, N), float32 or bfloat16, rows of unit stride;
     returns (M, N) in ``out_dtype`` (default ``out.dtype`` when ``out`` is
     given, else ``x.dtype``), accumulated in float32."""
+    return _priced.run("matmul",
+                       lambda: 2 * x.shape[0] * x.shape[1] * y.shape[1],
+                       (x, y), lambda: _matmul(x, y, out=out,
+                                               out_dtype=out_dtype))
+
+
+def _matmul(x: torch.Tensor, y: torch.Tensor, *,
+            out: torch.Tensor | None = None,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The body of :func:`matmul`."""
     if out is not None:
         if out_dtype is not None and out_dtype != out.dtype:
             raise TypeError(f"out is {out.dtype}, out_dtype {out_dtype}")

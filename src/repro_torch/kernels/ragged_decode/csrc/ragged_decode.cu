@@ -37,7 +37,9 @@
 // masked past pos[b] (a masked row takes p = 0); p is rounded to the
 // cache's type before the PV product, against the running max of its split
 // (warp) rather than the final max; the output is f32 acc / max(l, 1e-30).
-// A position past the cache attends all Smax rows; pos = 0 reads one row.
+// A position past the cache attends all Smax rows; pos = 0 reads one row;
+// with the log-sum-exp output a negative position reads none (out 0,
+// log-sum-exp -inf).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -390,16 +392,22 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // --------------------------------------------------------------- combine
 // Merge each (slot, query head)'s live splits.  Grid (Hq, B), HD threads.
-template <int HD>
+// kLse: also write the log-sum-exp of the head's scores, M + log(sum), to
+// ``lse``; there a slot with no live row (pos < 0: a shard of the cache
+// that lies wholly past the slot's newest row) merges nothing and gives
+// out 0 and -inf, the value a merge across cache shards weighs by.  Without
+// it the body is the one the unsharded decode has always run.
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(HD)
 decode_combine(const float* __restrict__ part_acc,
                const float* __restrict__ part_ml, const int* __restrict__ pos,
-               float* __restrict__ out, int Smax, int Hkv, int rep,
-               int n_split, int L) {
+               float* __restrict__ out, float* __restrict__ lse, int Smax,
+               int Hkv, int rep, int n_split, int L) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int g = h / rep, r = h % rep;
   const int last = min(pos[b], Smax - 1);
-  const int n_live = min(last / L + 1, n_split);
+  int n_live = min(last / L + 1, n_split);
+  if constexpr (kLse) n_live = last < 0 ? 0 : n_live;
   float M = kNegInf;
   for (int i = 0; i < n_live; ++i)
     M = fmaxf(M, part_ml[part_row(b, g, i, r, Hkv, n_split, rep) * 2]);
@@ -412,6 +420,24 @@ decode_combine(const float* __restrict__ part_acc,
   }
   out[(static_cast<size_t>(b) * Hkv * rep + h) * HD + d] =
       num / fmaxf(den, 1e-30f);
+  if constexpr (kLse) {
+    if (d == 0)
+      lse[static_cast<size_t>(b) * Hkv * rep + h] =
+          n_live > 0 ? M + logf(den) : __uint_as_float(0xff800000u);
+  }
+}
+
+template <int HD>
+void launch_combine(const float* pacc, const float* pml, const int* pos,
+                    float* out, float* lse, int B, int Smax, int Hkv,
+                    int rep, int n_split, int L, cudaStream_t s) {
+  const dim3 grid(Hkv * rep, B);
+  if (lse != nullptr)
+    decode_combine<HD, true><<<grid, HD, 0, s>>>(
+        pacc, pml, pos, out, lse, Smax, Hkv, rep, n_split, L);
+  else
+    decode_combine<HD, false><<<grid, HD, 0, s>>>(
+        pacc, pml, pos, out, nullptr, Smax, Hkv, rep, n_split, L);
 }
 
 template <int HD>
@@ -443,14 +469,16 @@ void launch_f32(const void* q, const void* k, const void* v, const int* pos,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  scratch: B * Hkv * n_split * rep * (hd + 2)
-// floats (part_acc, then part_ml).  Two launches: the split pass and the
-// combine.  Returns cudaGetLastError() after them (cudaErrorInvalidValue
-// for a shape or split the kernel does not take).
+// floats (part_acc, then part_ml).  lse: null, or (B, Hq) floats for each
+// head's log-sum-exp.  Two launches: the split pass and the combine.
+// Returns cudaGetLastError() after them (cudaErrorInvalidValue for a shape
+// or split the kernel does not take).
 extern "C" int ragged_decode_launch(int dtype, const void* q, const void* k,
                                     const void* v, const void* pos, void* out,
-                                    void* scratch, int B, int Smax, int Hkv,
-                                    int rep, int hd, int n_split, int L,
-                                    float scale, void* stream) {
+                                    void* lse, void* scratch, int B,
+                                    int Smax, int Hkv, int rep, int hd,
+                                    int n_split, int L, float scale,
+                                    void* stream) {
   if (B <= 0 || Smax <= 0 || Hkv <= 0 || rep < 1 || rep > kMaxRep ||
       n_split <= 0 || L <= 0 || L % kTile != 0 ||
       static_cast<long long>(n_split) * L < Smax ||
@@ -478,12 +506,12 @@ extern "C" int ragged_decode_launch(int dtype, const void* q, const void* k,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   float* o = static_cast<float*>(out);
+  float* ls = static_cast<float*>(lse);
   if (hd == 64)
-    decode_combine<64><<<dim3(Hkv * rep, B), 64, 0, s>>>(
-        pacc, pml, p, o, Smax, Hkv, rep, n_split, L);
+    launch_combine<64>(pacc, pml, p, o, ls, B, Smax, Hkv, rep, n_split, L, s);
   else
-    decode_combine<128><<<dim3(Hkv * rep, B), 128, 0, s>>>(
-        pacc, pml, p, o, Smax, Hkv, rep, n_split, L);
+    launch_combine<128>(pacc, pml, p, o, ls, B, Smax, Hkv, rep, n_split, L,
+                        s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from .ref import ragged_decode_ref
 
 launches = 0
@@ -48,19 +48,31 @@ def sm_count(index: int) -> int:
 
 
 def ragged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, pos: torch.Tensor
-                            ) -> torch.Tensor:
+                            v_cache: torch.Tensor, pos: torch.Tensor, *,
+                            lse: bool = False):
     """One-token GQA attention against a ragged batch cache.
 
     q: (B, Hq, hd); k,v: (B, Smax, Hkv, hd); pos: (B,) int32 index of each
     slot's newest live token (inclusive; a position past the cache attends
-    all of it).  Returns (B, Hq, hd) float32."""
-    if q.device.type == "cpu":
-        return ragged_decode_ref(q, k_cache, v_cache, pos)
-    return _launch(q, k_cache, v_cache, pos)
+    all of it).  Returns (B, Hq, hd) float32, and with ``lse`` also the
+    (B, Hq) float32 log-sum-exp of each head's scores: what a merge of the
+    results over shards of the cache weighs them by.  With ``lse`` a
+    negative position reads no row, which gives 0 and -inf (a shard wholly
+    past the slot's newest row); without it the kernel takes positions
+    >= 0 only."""
+    B, Hq, hd = q.shape
+
+    def body():
+        if q.device.type == "cpu":
+            return ragged_decode_ref(q, k_cache, v_cache, pos, lse=lse)
+        return _launch(q, k_cache, v_cache, pos, lse)
+    # priced at every cache row: the split grid covers them all
+    return _priced.run("ragged_decode",
+                       lambda: 4 * B * Hq * hd * k_cache.shape[1],
+                       (q, k_cache, v_cache, pos), body)
 
 
-def _launch(q, k_cache, v_cache, pos):
+def _launch(q, k_cache, v_cache, pos, want_lse=False):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"ragged_decode runs on cuda or cpu, not {q.device}")
@@ -94,14 +106,18 @@ def _launch(q, k_cache, v_cache, pos):
     rep = Hq // Hkv
     n_split, L = split_geometry(B, Hkv, Smax, sm_count(q.device.index))
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     scratch = torch.empty(B * Hkv * n_split * rep * (hd + 2),
                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.ragged_decode_launch(
             code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, Smax, Hkv,
+            pos.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), scratch.data_ptr(), B,
+            Smax, Hkv,
             rep, hd, n_split, L, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ragged_decode")
     launches += 1
-    return out
+    return (out, lse) if want_lse else out

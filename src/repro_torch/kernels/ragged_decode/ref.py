@@ -9,10 +9,12 @@ import torch
 
 
 def ragged_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, pos: torch.Tensor
-                      ) -> torch.Tensor:
+                      v_cache: torch.Tensor, pos: torch.Tensor, *,
+                      lse: bool = False):
     """q: (B, Hq, hd); k,v: (B, Smax, Hkv, hd); pos: (B,) int — the index
-    of each slot's newest token (inclusive).  Returns (B, Hq, hd) float32."""
+    of each slot's newest token (inclusive).  Returns (B, Hq, hd) float32,
+    and with ``lse`` the (B, Hq) float32 log-sum-exp of each head's live
+    scores.  A slot with no live row (``pos < 0``) gives 0 and -inf."""
     B, Hq, hd = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = Hq // Hkv
@@ -22,6 +24,11 @@ def ragged_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
              <= pos.to(q.device)[:, None])                   # (B, Smax)
     s = s.masked_fill(~valid[:, None, None], -1e30)
     p = torch.softmax(s, dim=-1)
+    live = valid.any(-1)[:, None, None, None]                # (B, 1, 1, 1)
+    p = torch.where(live, p, 0.0)
     out = torch.einsum("bgrs,bsgh->bgrh", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, Hq, hd)
+                       v_cache.float()).reshape(B, Hq, hd)
+    if not lse:
+        return out
+    m = torch.where(live[..., 0], torch.logsumexp(s, dim=-1), float("-inf"))
+    return out, m.reshape(B, Hq)

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from ..flash_attention.ops import check_tma
 from .ref import ragged_prefill_ref
 
@@ -39,9 +39,16 @@ def ragged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     live rows).  A chunk may cross or start past the cache's end: a query
     at ``start + i >= Smax`` attends to all ``Smax`` rows.  Returns (B, T,
     Hq, hd) float32 with rows ``i >= qlen[b]`` exact zeros."""
-    if q.device.type == "cpu":
-        return ragged_prefill_ref(q, k_cache, v_cache, start, qlen)
-    return _launch(q, k_cache, v_cache, start, qlen)
+    B, T, Hq, hd = q.shape
+
+    def body():
+        if q.device.type == "cpu":
+            return ragged_prefill_ref(q, k_cache, v_cache, start, qlen)
+        return _launch(q, k_cache, v_cache, start, qlen)
+    # priced at every (chunk row, cache row) pair, as the shapes allow
+    return _priced.run("ragged_prefill",
+                       lambda: 4 * B * Hq * hd * T * k_cache.shape[1],
+                       (q, k_cache, v_cache, start, qlen), body)
 
 
 def _launch(q, k_cache, v_cache, start, qlen):

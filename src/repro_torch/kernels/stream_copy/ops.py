@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-from .. import _build
+from .. import _build, _priced
 from .ref import stream_copy_ref, stream_scale_add_ref
 
 copy_launches = 0
@@ -31,6 +31,13 @@ def stream_copy(x: torch.Tensor, *,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """A copy of contiguous ``x`` (into ``out``: same shape and dtype,
     contiguous, not overlapping ``x``)."""
+    return _priced.run("stream_copy", lambda: 0, (x,),
+                       lambda: _stream_copy(x, out=out))
+
+
+def _stream_copy(x: torch.Tensor, *,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The body of :func:`stream_copy`."""
     global copy_launches
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype):
         raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, x "
@@ -55,6 +62,14 @@ def stream_scale_add(x: torch.Tensor, y: torch.Tensor, a: float, b: float,
                      *, out: torch.Tensor | None = None) -> torch.Tensor:
     """``a * x + b * y`` computed in float32, cast to ``x.dtype``; x, y
     (and ``out``) contiguous, of one shape and dtype."""
+    return _priced.run("stream_scale_add", lambda: 3 * x.numel(), (x, y),
+                       lambda: _stream_scale_add(x, y, a, b, out=out))
+
+
+def _stream_scale_add(x: torch.Tensor, y: torch.Tensor, a: float,
+                      b: float, *, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """The body of :func:`stream_scale_add`."""
     global scale_add_launches
     if y.shape != x.shape or y.dtype != x.dtype:
         raise ValueError(f"x is {tuple(x.shape)} {x.dtype}, y "

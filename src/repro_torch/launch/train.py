@@ -21,6 +21,7 @@ package's file format, so either package resumes the other's run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -32,7 +33,8 @@ from ..data import DataConfig, SyntheticLMData
 from ..device import resolve_device
 from ..models import get_model
 from ..optim.adamw import AdamWConfig
-from ..train.step import make_train_step, train_state_init
+from ..distributed.sharding import use_rules
+from ..train.step import local_train_state, make_train_step, train_state_init
 
 
 def _normal(shape, seed: int, device) -> torch.Tensor:
@@ -41,10 +43,20 @@ def _normal(shape, seed: int, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device)
 
 
-def run(argv=None) -> dict:
+def run(argv=None, mesh=None) -> dict:
     """Parse ``argv``, train, and return ``{"final_loss", "losses",
     "step_s" (each step's wall seconds, the loss read back), "state",
-    "step" (the :class:`~repro_torch.train.step.TrainStep`)}``."""
+    "step" (the :class:`~repro_torch.train.step.TrainStep`)}``.  With
+    ``mesh`` (a ``DeviceMesh`` over a process group the caller started,
+    every rank calling ``run``), the steps run under its rules: the
+    state is each rank's block (``train.step.local_train_state``), the
+    dense layers sharded (``distributed.tp``); checkpoints are not
+    written from a mesh."""
+    with use_rules(mesh) if mesh is not None else contextlib.nullcontext():
+        return _run(argv, mesh)
+
+
+def _run(argv, mesh) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
@@ -95,6 +107,10 @@ def run(argv=None) -> dict:
                                            device=device)
             start_step = extra["data"]["step"]
             print(f"resumed from step {last} (data step {start_step})")
+    if mesh is not None:
+        if ckpt:
+            raise NotImplementedError("checkpoints from a mesh")
+        state = local_train_state(model, state)
 
     data = SyntheticLMData(DataConfig(
         vocab=cfg.vocab, global_batch=args.global_batch,

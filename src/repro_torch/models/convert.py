@@ -44,6 +44,8 @@ JAX training checkpoint resumes in the port and the other way round.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -51,10 +53,11 @@ from torch import nn
 from ..checkpoint.store import device_leaf, host_leaf
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed import tp
 from ..tree import tree_map
 from . import jamba, moe, vlm
 from . import layers as L
-from .mamba2 import SSM, SSMLayer
+from .mamba2 import SSM, SSM_AXES, SSMLayer
 from .moe import MoE, MoEBlock
 from .transformer import Block, Transformer
 
@@ -197,55 +200,43 @@ def param_tree(cfg: ModelConfig, model, leaf=lambda t: t) -> dict:
 # logical-axis specs: what every reference ``init`` returns beside params
 # ---------------------------------------------------------------------------
 
+def _pick(axes: dict, names) -> dict:
+    return {n: axes[n] for n in names}
+
+
 def _norm_specs(cfg: ModelConfig) -> dict:
-    if cfg.norm == "layernorm":
-        return {"scale": (None,), "bias": (None,)}
-    return {"scale": (None,)}
+    return _pick(L.NORM_AXES, ("scale", "bias") if cfg.norm == "layernorm"
+                 else ("scale",))
 
 
 def _attention_specs(cfg: ModelConfig) -> dict:
-    s = {"wq": ("fsdp", "qkv"), "wk": ("fsdp", "qkv"),
-         "wv": ("fsdp", "qkv"), "wo": ("qkv", "fsdp")}
+    names = ["wq", "wk", "wv", "wo"]
     if cfg.qkv_bias:
-        s.update(bq=("qkv",), bk=("qkv",), bv=("qkv",))
+        names += ["bq", "bk", "bv"]
     if cfg.qk_norm:
-        s.update(q_norm=(None,), k_norm=(None,))
-    return s
+        names += ["q_norm", "k_norm"]
+    return _pick(L.ATTN_AXES, names)
 
 
 def _mlp_specs(cfg: ModelConfig) -> dict:
-    if cfg.act == "silu":
-        return {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
-                "w_down": ("ff", "fsdp")}
-    return {"w_in": ("fsdp", "ff"), "b_in": ("ff",),
-            "w_out": ("ff", "fsdp"), "b_out": (None,)}
+    return _pick(L.MLP_AXES, ("w_gate", "w_up", "w_down") if cfg.act == "silu"
+                 else ("w_in", "b_in", "w_out", "b_out"))
 
 
 def _embedding_specs(cfg: ModelConfig) -> dict:
-    s = {"embed": ("vocab", "fsdp")}
-    if not cfg.tie_embeddings:
-        s["lm_head"] = ("fsdp", "vocab")
-    return s
+    return _pick(L.EMBED_AXES, ("embed",) if cfg.tie_embeddings
+                 else ("embed", "lm_head"))
 
-
-_MOE_SPECS = {"router": ("fsdp", "experts"),
-              "w_gate": ("experts", "fsdp", None),
-              "w_up": ("experts", "fsdp", None),
-              "w_down": ("experts", None, "fsdp")}
-
-_SSM_SPECS = {"in_proj": ("fsdp", "ff"), "conv_w": (None, "ff"),
-              "conv_b": ("ff",), "dt_bias": (None,), "A_log": (None,),
-              "D": (None,), "norm": ("ff",), "out_proj": ("ff", "fsdp")}
 
 
 def _layer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     """One layer: ``ln1``, the mixer (``attn``, ``xattn`` or ``ssm``),
     ``ln2`` and the FFN (``mlp`` or ``moe``)."""
     return {"ln1": _norm_specs(cfg),
-            mixer: dict(_SSM_SPECS) if mixer == "ssm"
+            mixer: dict(SSM_AXES) if mixer == "ssm"
             else _attention_specs(cfg),
             "ln2": _norm_specs(cfg),
-            ffn: dict(_MOE_SPECS) if ffn == "moe" else _mlp_specs(cfg)}
+            ffn: dict(moe.MOE_AXES) if ffn == "moe" else _mlp_specs(cfg)}
 
 
 def _stacked_specs(tree: dict, axes: int) -> dict:
@@ -278,14 +269,47 @@ def param_specs(cfg: ModelConfig) -> dict:
                                            1)
     elif cfg.family == "ssm":
         out["layers"] = _stacked_specs({"ln": _norm_specs(cfg),
-                                        "ssm": dict(_SSM_SPECS)}, 1)
+                                        "ssm": dict(SSM_AXES)}, 1)
     else:
         ffn = "moe" if cfg.family == "moe" else "mlp"
         out["layers"] = _stacked_specs(_layer_specs(cfg, "attn", ffn), 1)
         if cfg.family == "audio":
-            out["head"] = ("fsdp", "vocab")
+            out["head"] = L.EMBED_AXES["head"]
     out["ln_f"] = _norm_specs(cfg)
     return out
+
+
+def local_tree(cfg: ModelConfig, tree: dict, specs: dict | None = None
+               ) -> dict:
+    """This rank's block of every leaf of ``tree`` (the reference's
+    layout, global shapes; numpy arrays or tensors) under the active
+    rules, by ``specs`` (default :func:`param_specs`), each a copy of its
+    own: the same reference weights load onto any mesh.  Without rules,
+    ``tree`` itself."""
+    lay = tp.layout()
+    if lay is None:
+        return tree
+
+    def block(names, t):
+        b = tp.local_block(t, names, lay)
+        return b.clone() if isinstance(b, torch.Tensor) else np.array(b)
+    specs = param_specs(cfg) if specs is None else specs
+    return tree_map(block, specs, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(cfg: ModelConfig) -> dict:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from . import get_model
+    with FakeTensorMode():
+        model = get_model(cfg).init(torch.Generator(), "cpu")
+        return tree_map(lambda t: tuple(t.shape), param_tree(cfg, model))
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The global shape of every leaf of :func:`param_tree` (the model
+    built on fake tensors, no memory; cached a configuration)."""
+    return _shapes(cfg)
 
 
 def bind_params(cfg: ModelConfig, model, tree: dict) -> None:

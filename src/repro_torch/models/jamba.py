@@ -35,6 +35,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed import tp
 from . import layers as L
 from . import mamba2 as S
 from . import transformer
@@ -132,8 +133,7 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _mamba_full(cfg: ModelConfig, lp: MambaBlock, x):
-    out, state = S.ssm_layer_full(cfg, lp.ssm,
-                                  L.apply_norm(lp.ln1, x, cfg.norm))
+    out, state = S.ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln1, x, cfg.norm))
     x = x + out
     return x + lp.ffn(cfg, L.apply_norm(lp.ln2, x, cfg.norm)), state
 
@@ -147,7 +147,7 @@ def _mamba_step(cfg: ModelConfig, lp: MambaBlock, x, ssm: torch.Tensor,
                 conv: torch.Tensor):
     """One decode step of a mamba layer; its state is written into
     ``ssm`` and ``conv`` (views of the cache) in place."""
-    out, (h, new_conv) = S.ssm_layer_step(
+    out, (h, new_conv) = S.ssm_step(
         cfg, lp.ssm, L.apply_norm(lp.ln1, x, cfg.norm), ssm, conv)
     ssm.copy_(h)
     conv.copy_(new_conv)
@@ -162,23 +162,33 @@ def _mamba_step(cfg: ModelConfig, lp: MambaBlock, x, ssm: torch.Tensor,
 def forward(cfg: ModelConfig, p: Jamba, batch: dict) -> torch.Tensor:
     """Full-sequence logits (B, S, V), the reference's ``forward``: every
     superblock without a cache, each layer rematerialized in the backward
-    (the reference checkpoints the same blocks)."""
-    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    for sb in p.blocks:
-        x = L.remat(transformer._block, cfg, sb.attn_layer, x, positions,
-                    False)
-        for kind, i in ORDER:
-            x = L.remat(_mamba, cfg, sb.mamba(kind, i), x)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x)
+    (the reference checkpoints the same blocks; under rules the logits of
+    the rank's batch rows)."""
+    B, S_ = batch["tokens"].shape
+    with tp.entry(B, S_) as act:
+        x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+        positions = torch.arange(S_, device=x.device)
+        for sb in p.blocks:
+            x = L.remat(transformer._block, cfg, sb.attn_layer, x,
+                        positions, False)
+            for kind, i in ORDER:
+                x = L.remat(_mamba, cfg, sb.mamba(kind, i), x)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        return L.lm_head(cfg, p.tok, x, tp.sp(act))
 
 
 def prefill(cfg: ModelConfig, p: Jamba, batch: dict):
     """Whole prompts; returns (last-token logits (B, 1, V), the six-leaf
-    cache with prompt-length ``k`` / ``v``)."""
+    cache with prompt-length ``k`` / ``v``; under rules the rank's
+    block)."""
+    B, S_ = batch["tokens"].shape
+    with tp.entry(B, S_) as act:
+        return _prefill(cfg, p, batch, act)
+
+
+def _prefill(cfg: ModelConfig, p: Jamba, batch: dict, act):
     x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     ks, vs = [], []
     states = {kind: ([], []) for kind in ("moe", "dense")}
     for sb in p.blocks:
@@ -194,29 +204,33 @@ def prefill(cfg: ModelConfig, p: Jamba, batch: dict):
         for kind, (hs, convs) in per.items():
             states[kind][0].append(torch.stack(hs))
             states[kind][1].append(torch.stack(convs))
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
+    x = L.apply_norm(p.ln_f, transformer.out_rows(x, act), cfg.norm)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     for kind, (hs, convs) in states.items():
         cache[f"ssm_{kind}"] = torch.stack(hs)
         cache[f"conv_{kind}"] = torch.stack(convs)
-    return L.lm_head(cfg, p.tok, x[:, -1:]), cache
+    return transformer.out_batch(L.lm_head(cfg, p.tok, x[:, -1:]), act), \
+        cache
 
 
 def decode(cfg: ModelConfig, p: Jamba, token, pos, cache: dict):
     """One decode step, every cache leaf written in place (the returned
     cache is the same dict of the same tensors).  ``pos``: a scalar or a
     per-slot (B,) vector; only the attention layers read it."""
-    x = L.embed_tokens(cfg, p.tok, token)
-    pos = L.position_vector(pos, x.shape[0], x.device)
-    for b, sb in enumerate(p.blocks):
-        x = transformer._block_decode(cfg, sb.attn_layer, x, cache["k"],
-                                      cache["v"], b, pos, rope=False)
-        for kind, i in ORDER:
-            x = _mamba_step(cfg, sb.mamba(kind, i), x,
-                            cache[f"ssm_{kind}"][b, i],
-                            cache[f"conv_{kind}"][b, i])
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    B = token.shape[0]
+    with tp.entry(B, 1) as act:
+        x = L.embed_tokens(cfg, p.tok, token)
+        pos = L.position_vector(pos, B, x.device)
+        pos = tp.batch_block(pos)
+        for b, sb in enumerate(p.blocks):
+            x = transformer._block_decode(cfg, sb.attn_layer, x, cache["k"],
+                                          cache["v"], b, pos, rope=False)
+            for kind, i in ORDER:
+                x = _mamba_step(cfg, sb.mamba(kind, i), x,
+                                cache[f"ssm_{kind}"][b, i],
+                                cache[f"conv_{kind}"][b, i])
+        x = L.apply_norm(p.ln_f, transformer.out_rows(x, act), cfg.norm)
+        return transformer.out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

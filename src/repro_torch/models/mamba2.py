@@ -42,13 +42,20 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed import tp
 from . import layers as L
-from .transformer import Transformer
+from .transformer import Transformer, out_batch, out_rows
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+# the reference's logical axes of each tensor
+SSM_AXES = {"in_proj": ("fsdp", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "dt_bias": (None,), "A_log": (None,),
+            "D": (None,), "norm": ("ff",), "out_proj": ("ff", "fsdp")}
+
 
 class SSM(nn.Module):
     """One SSD layer's weights under the reference's names: ``in_proj``
@@ -218,6 +225,55 @@ def ssm_layer_step(cfg: ModelConfig, p: SSM, x: torch.Tensor,
     return out, (h, new_conv)
 
 
+def _ssm_shapes(cfg: ModelConfig) -> dict:
+    D, di, ds, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * ds
+    return {"in_proj": (D, 2 * di + 2 * ds + nh),
+            "conv_w": (cfg.ssm_conv, conv_dim), "conv_b": (conv_dim,),
+            "dt_bias": (nh,), "A_log": (nh,), "D": (nh,), "norm": (di,),
+            "out_proj": (di, D)}
+
+
+def _conv_sharded(cfg: ModelConfig) -> bool:
+    """Whether the conv state's channels are on ``model`` (``"ff"``)."""
+    return tp.model_sharded(("ff",), (cfg.d_inner + 2 * cfg.ssm_state,), 0)
+
+
+def ssm_full(cfg: ModelConfig, p: SSM, h: torch.Tensor):
+    """:func:`ssm_layer_full` on a residual; under rules computed whole on
+    every rank of ``model`` (the SSD over ``heads`` is not sharded yet):
+    the weights gathered, the sequence gathered where it is sequence-
+    parallel, the output cut back to the rank's block and the conv state
+    to its channels."""
+    sp = tp.sp(tp.activation())
+    tp.replicated("ssm")
+    out, (hT, conv) = ssm_layer_full(
+        cfg, tp.full_module(p, SSM_AXES, _ssm_shapes(cfg)),
+        tp.seq_full(h, sp))
+    if sp:
+        out = tp.model_block(out)
+    if _conv_sharded(cfg):
+        conv = tp.model_block(conv, -1)
+    return out, (hT, conv)
+
+
+def ssm_step(cfg: ModelConfig, p: SSM, h: torch.Tensor,
+             ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """:func:`ssm_layer_step`; under rules whole on every rank of
+    ``model``, the conv state's channels gathered and cut back."""
+    sp = tp.sp(tp.activation())
+    tp.replicated("ssm")
+    shard = _conv_sharded(cfg)
+    if shard:
+        conv_state = tp.gather(conv_state, -1, "model")
+    out, (hn, conv) = ssm_layer_step(
+        cfg, tp.full_module(p, SSM_AXES, _ssm_shapes(cfg)),
+        tp.seq_full(h, sp), ssm_state, conv_state)
+    if sp:
+        out = tp.model_block(out)
+    return out, (hn, tp.model_block(conv, -1) if shard else conv)
+
+
 # ---------------------------------------------------------------------------
 # model (mamba2-130m: every layer SSM, norm + residual)
 # ---------------------------------------------------------------------------
@@ -246,49 +302,56 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer(cfg: ModelConfig, lp: SSMLayer, x: torch.Tensor) -> torch.Tensor:
-    return x + ssm_layer_full(cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm))[0]
+    return x + ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm))[0]
 
 
 def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:
     """Full-sequence logits (B, S, V), the reference's ``forward``: every
-    layer from a zero state, rematerialized in the backward."""
-    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    for lp in p.layers:
-        x = L.remat(_layer, cfg, lp, x)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x)
+    layer from a zero state, rematerialized in the backward (under rules
+    the logits of the rank's batch rows)."""
+    B, S = batch["tokens"].shape
+    with tp.entry(B, S) as act:
+        x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+        for lp in p.layers:
+            x = L.remat(_layer, cfg, lp, x)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        return L.lm_head(cfg, p.tok, x, tp.sp(act))
 
 
 def prefill(cfg: ModelConfig, p: Transformer, batch: dict):
     """Whole prompts; returns (last-token logits (B, 1, V), cache {"ssm":
-    (L, B, nh, hp, ds), "conv": (L, B, min(S, K-1), conv_dim)})."""
-    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    hs, convs = [], []
-    for lp in p.layers:
-        out, (hT, conv) = ssm_layer_full(cfg, lp.ssm,
-                                         L.apply_norm(lp.ln, x, cfg.norm))
-        x = x + out
-        hs.append(hT)
-        convs.append(conv)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return (L.lm_head(cfg, p.tok, x[:, -1:]),
-            {"ssm": torch.stack(hs), "conv": torch.stack(convs)})
+    (L, B, nh, hp, ds), "conv": (L, B, min(S, K-1), conv_dim)}); under
+    rules the cache is the rank's block."""
+    B, S = batch["tokens"].shape
+    with tp.entry(B, S) as act:
+        x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+        hs, convs = [], []
+        for lp in p.layers:
+            out, (hT, conv) = ssm_full(cfg, lp.ssm,
+                                       L.apply_norm(lp.ln, x, cfg.norm))
+            x = x + out
+            hs.append(hT)
+            convs.append(conv)
+        x = L.apply_norm(p.ln_f, out_rows(x, act), cfg.norm)
+        return (out_batch(L.lm_head(cfg, p.tok, x[:, -1:]), act),
+                {"ssm": torch.stack(hs), "conv": torch.stack(convs)})
 
 
 def decode(cfg: ModelConfig, p: Transformer, token, pos, cache: dict):
     """One recurrence step, the cache written in place (the returned cache
     is the same dict of the same tensors).  ``pos`` is unused: the state
     does not grow with position; it is part of the uniform signature."""
-    x = L.embed_tokens(cfg, p.tok, token)
-    for i, lp in enumerate(p.layers):
-        out, (h, conv) = ssm_layer_step(
-            cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm), cache["ssm"][i],
-            cache["conv"][i])
-        cache["ssm"][i].copy_(h)
-        cache["conv"][i].copy_(conv)
-        x = x + out
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    with tp.entry(token.shape[0], 1) as act:
+        x = L.embed_tokens(cfg, p.tok, token)
+        for i, lp in enumerate(p.layers):
+            out, (h, conv) = ssm_step(
+                cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm),
+                cache["ssm"][i], cache["conv"][i])
+            cache["ssm"][i].copy_(h)
+            cache["conv"][i].copy_(conv)
+            x = x + out
+        x = L.apply_norm(p.ln_f, out_rows(x, act), cfg.norm)
+        return out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -27,14 +27,16 @@ function as its one-hot ``moe_dense`` oracle:
   its launch count does not depend on the routing.
 
 Expert parallelism is the reference's ``moe_ep`` as a per-rank body
-(:func:`moe_ep`): under active sharding rules
-(``repro_torch.distributed.sharding.use_rules``) a prefill of more than
-4096 tokens splits into (batch x sequence) blocks over the mesh, each
-rank ranks its own block's copies at the block's capacity, two
-``all_to_all_single`` calls over the ``model`` axis carry copies to the
-rank that owns their expert column and back, and the blocks are
-all-gathered.  Capacity is per block, so where copies drop the result
-differs from the one-column function's, as the reference's does.
+(:func:`_tp_moe`, which :func:`moe_ep` and the entry points under rules
+both run): under active sharding rules
+(``repro_torch.distributed.sharding.use_rules``) on a ``DeviceMesh`` a
+prefill of more than 4096 tokens is cut into (batch x sequence) blocks
+over the mesh, each rank ranks its own block's copies at the block's
+capacity, and two ``all_to_all_single`` calls over the ``model`` axis
+carry copies to the rank that owns their expert column and back.
+Capacity is per block, so where copies drop the result differs from the
+one-column function's, as the reference's does.  Other MoE calls under
+rules gather the tokens and sum each rank's experts over ``model``.
 Without rules every path is the one-column body.
 
 Two layouts, as in the reference:
@@ -63,6 +65,7 @@ the engine prefills MoE prompts whole.
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.distributed.nn.functional as dist_fn
@@ -71,7 +74,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
-from ..distributed.sharding import current_rules, mesh_shape
+from ..distributed import tp
 from . import layers as L
 from . import transformer
 
@@ -93,6 +96,13 @@ def layout(cfg: ModelConfig) -> tuple[int, int]:
         raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
                          f"moe_every={cfg.moe_every}")
     return cfg.n_layers // cfg.moe_every, cfg.moe_every - 1
+
+
+# the reference's logical axes of each tensor
+MOE_AXES = {"router": ("fsdp", "experts"),
+            "w_gate": ("experts", "fsdp", None),
+            "w_up": ("experts", "fsdp", None),
+            "w_down": ("experts", None, "fsdp")}
 
 
 class MoE(nn.Module):
@@ -275,13 +285,14 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def moe_ep_local(cfg: ModelConfig, p: MoE, x_blk: torch.Tensor,
                  n_cols: int = 1, col: int = 0, group=None,
-                 min_capacity: int = 0) -> torch.Tensor:
+                 min_capacity: int = 0, local: bool = False) -> torch.Tensor:
     """The reference's ``_moe_ep_local``: one rank's block (b, s, D) ->
     (b, s, D) in its dtype.  Capacity comes from the block's own token
     count; the send buffer goes to the ``n_cols`` expert columns over
     ``group`` (``None``: one column, no collective), this rank's experts
     ``col * e_loc .. (col + 1) * e_loc`` run on what every column sent,
-    and the results go back the same way."""
+    and the results go back the same way.  ``local``: ``p`` holds this
+    column's experts alone (the rank's shard under ``distributed.tp``)."""
     b, s, D = x_blk.shape
     N, E, k = b * s, cfg.n_experts, cfg.top_k
     e_loc = E // n_cols
@@ -293,7 +304,8 @@ def moe_ep_local(cfg: ModelConfig, p: MoE, x_blk: torch.Tensor,
     # recv: (n_src, e_loc, cap, D) -> (e_loc, n_src * cap, D)
     n_src = recv.shape[0]
     xe = recv.transpose(0, 1).reshape(e_loc, n_src * cap, D)
-    ye = expert_ffn(cfg, p, xe, slice(col * e_loc, (col + 1) * e_loc))
+    ye = expert_ffn(cfg, p, xe, slice(None) if local
+                    else slice(col * e_loc, (col + 1) * e_loc))
     ye = ye.reshape(e_loc, n_src, cap, D).transpose(0, 1)
     back = ye if group is None else _all_to_all(ye, group)
     back = torch.cat([back.reshape(E * cap, D),
@@ -312,55 +324,100 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
 
 
 def moe_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
-    """Expert-parallel MoE, the reference's ``moe_ep``, as a per-rank body
-    over the active rules' ``DeviceMesh``: tokens sharded over (batch
-    axes x ``model``), experts over ``model``.  Rank (batch ``bi``, model
-    ``col``) takes the block ``(B / n_batch, S / n_cols)`` at ``(bi,
-    col)`` (the model axis shards the sequence, the reference's
-    ``pspec_x``), runs :func:`moe_ep_local` with two ``all_to_all_single``
-    over the ``model`` group, and all-gathers the blocks, so every rank
-    returns the global (B, S, D).  Without rules, the one-column body;
-    where the shapes do not divide the mesh or it has no ``model`` axis,
-    the dense function (the reference's fallbacks)."""
-    rules = current_rules()
-    if rules is None:
+    """Expert-parallel MoE, the reference's ``moe_ep``, on the global x
+    (B, S, D): tokens sharded over (batch axes x ``model``), experts over
+    ``model``.  Under rules on a ``DeviceMesh`` each rank takes its block
+    of ``x`` (the rows on the batch axes, the sequence on ``model``: the
+    reference's ``pspec_x``) and of the experts, runs the body the entry
+    points run under rules (:func:`_tp_moe`: :func:`moe_ep_local` with two
+    ``all_to_all_single`` over ``model``, or where the shapes do not
+    divide the mesh or it has no ``model`` axis, the dense function: the
+    reference's fallbacks), and the blocks are all-gathered, so every rank
+    returns the global (B, S, D).  Without rules, or with rules on a plain
+    mapping, the one-column body."""
+    if tp.layout() is None:
         return moe_apply(cfg, p, x)
-    sizes = mesh_shape(rules.mesh)
-    B, S, D = x.shape
-    batch_axes = tuple(a for a in rules.rules.get("batch", ()) if a in sizes)
-    n_cols = sizes.get("model", 1)
-    n_batch = math.prod(sizes[a] for a in batch_axes)
-    if ("model" not in sizes or cfg.n_experts % n_cols or S % n_cols
-            or B % n_batch):
-        return moe_apply(cfg, p, x)
-    mesh = rules.mesh
-    col = mesh.get_local_rank("model")
-    bi = 0
-    for a in batch_axes:                 # row-major over the batch axes
-        bi = bi * sizes[a] + mesh.get_local_rank(a)
-    b, s = B // n_batch, S // n_cols
-    model = mesh.get_group("model")
-    y = moe_ep_local(cfg, p, x[bi * b:(bi + 1) * b, col * s:(col + 1) * s],
-                     n_cols, col, model)
-    y = torch.cat(dist_fn.all_gather(y, group=model), dim=1)
-    for a in reversed(batch_axes):       # minor axis first
-        y = torch.cat(dist_fn.all_gather(y, group=mesh.get_group(a)), dim=0)
-    return y
+    B, S, _ = x.shape
+    with tp.entry(B, S) as act:
+        blocks = types.SimpleNamespace(**{
+            n: tp.local_block(getattr(p, n), MOE_AXES[n]) for n in MOE_AXES})
+        y = _tp_moe(cfg, blocks, tp.token_block(x), decode=False, ep=True)
+        return tp.batch_full(tp.seq_full(y, act.sp), B)
 
 
 def moe_ffn(cfg: ModelConfig, p: MoE, h: torch.Tensor,
             decode: bool = False) -> torch.Tensor:
     """The MoE block in place of the dense MLP, the reference's
     ``moe_apply(..., decode=decode)``: a decode step runs at no-drop
-    capacity (the batch's token count), so no copy is dropped; more than
-    4096 tokens take :func:`moe_ep`, which is the one-column body unless
-    rules are active."""
+    capacity (the batch's token count), so no copy is dropped; a prefill
+    of more than 4096 tokens runs expert-parallel (:func:`moe_ep`, the
+    one-column body without rules).  Inside an entry point's call under
+    rules, :func:`_tp_moe` on the rank's residual."""
+    act = tp.activation()
+    if act is not None:
+        return _tp_moe(cfg, p, h, decode,
+                       ep=not decode and act.B * act.S > 4096)
     B, S = h.shape[:2]
     if decode:
         return moe_apply(cfg, p, h, min_capacity=B * S)
     if B * S > 4096:
         return moe_ep(cfg, p, h)
     return moe_apply(cfg, p, h)
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    return {"router": (D, E), "w_gate": (E, D, Fe), "w_up": (E, D, Fe),
+            "w_down": (E, Fe, D)}
+
+
+def _tp_moe(cfg: ModelConfig, p, h: torch.Tensor, decode: bool, ep: bool):
+    """The MoE block on the rank's residual ``h`` under rules, ``p`` the
+    rank's block of the weights, with the reference's capacities.  With
+    ``ep`` (:func:`moe_ep`, or a prefill of more than 4096 tokens), where
+    the residual's block is ``moe_ep``'s block (the rows on every batch
+    axis, the sequence on ``model``) and the experts divide ``model``,
+    :func:`moe_ep_local` on it with the rank's experts, capacity from the
+    block's tokens.  Otherwise the tokens are gathered whole and routed at
+    the whole batch's capacity (no-drop at decode), each rank runs its own
+    experts (over ``model`` where they divide, all of them where not), and
+    the partial sums are all-reduced over ``model`` and cut back to the
+    rank's block: the dense function's result."""
+    lay, act = tp.layout(), tp.activation()
+    sh = _moe_shapes(cfg)
+    M, E, k = lay.model, cfg.n_experts, cfg.top_k
+    sharded = tp.model_sharded(MOE_AXES["w_gate"], sh["w_gate"], 0)
+    if not sharded:
+        tp.replicated("moe experts")
+    whole = tp.full_param if sharded else tp.full   # the rank's experts, or all
+    experts = {n: whole(getattr(p, n), MOE_AXES[n], sh[n])
+               for n in ("w_gate", "w_up", "w_down")}
+    pe = types.SimpleNamespace(
+        router=tp.full(p.router, MOE_AXES["router"], sh["router"]),
+        **experts)
+    batch_all = tuple(a for a in lay.rules.rules.get("batch", ())
+                      if a in lay.sizes)
+    if ep and sharded and act.sp and act.batch == batch_all:
+        return moe_ep_local(cfg, pe, h, M, lay.model_rank,
+                            lay.group("model"), local=True)
+    N = act.B * act.S
+    x = tp.batch_full(tp.seq_full(h, act.sp), act.B)       # (B, S, D)
+    x2d = x.reshape(N, -1)
+    D = x2d.shape[1]
+    cap = capacity(cfg, N, N if decode else 0)
+    vals, idx = route(cfg, pe.router, x2d)
+    n_cols, col = (M, lay.model_rank) if sharded else (1, 0)
+    send, slot, keep = local_dispatch(cfg, x2d, idx, n_cols, cap)
+    e_loc = E // n_cols
+    ye = expert_ffn(cfg, pe, send[col])                    # (e_loc, cap, D)
+    back = x2d.new_zeros((E * cap + 1, D))
+    back[col * e_loc * cap:(col + 1) * e_loc * cap] = ye.reshape(-1, D)
+    w = (vals.reshape(-1) * keep).to(back.dtype)
+    y = (back[slot] * w[:, None]).reshape(N, k, D).sum(dim=1)
+    if sharded:
+        y = tp.reduce(y, "model")
+    y = tp.batch_block(y.reshape(act.B, act.S, D).to(h.dtype))
+    return tp.model_block(y) if act.sp else y
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +432,9 @@ LEAVES = ("k_dense", "v_dense", "k_moe", "v_moe")
 def _prefill_superblocks(cfg: ModelConfig, p: AlternatingMoE, batch: dict):
     """Whole prompts through every superblock; returns the final residual
     (B, S, D) and the four cache leaves at prompt length."""
+    act = tp.activation()
     x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     leaves = {name: [] for name in LEAVES}
     for sb in p.blocks:
         ks, vs = [], []
@@ -391,6 +449,7 @@ def _prefill_superblocks(cfg: ModelConfig, p: AlternatingMoE, batch: dict):
         leaves["k_moe"].append(k)
         leaves["v_moe"].append(v)
     cache = {name: torch.stack(ts) for name, ts in leaves.items()}
+    x = transformer.out_rows(x, act)
     return L.apply_norm(p.ln_f, x, cfg.norm), cache
 
 
@@ -400,14 +459,16 @@ def forward(cfg: ModelConfig, p, batch: dict) -> torch.Tensor:
     (a copy can be dropped), each layer rematerialized in the backward."""
     if cfg.moe_every == 1:
         return transformer.forward(cfg, p, batch)
-    x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    for sb in p.blocks:
-        for lp in sb.dense_layers:
-            x = L.remat(transformer._block, cfg, lp, x, positions)
-        x = L.remat(transformer._block, cfg, sb.moe_layer, x, positions)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x)
+    B, S = batch["tokens"].shape
+    with tp.entry(B, S) as act:
+        x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+        positions = torch.arange(S, device=x.device)
+        for sb in p.blocks:
+            for lp in sb.dense_layers:
+                x = L.remat(transformer._block, cfg, lp, x, positions)
+            x = L.remat(transformer._block, cfg, sb.moe_layer, x, positions)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        return L.lm_head(cfg, p.tok, x, tp.sp(act))
 
 
 def prefill(cfg: ModelConfig, p, batch: dict):
@@ -416,8 +477,10 @@ def prefill(cfg: ModelConfig, p, batch: dict):
     capacity, where a copy can be dropped."""
     if cfg.moe_every == 1:
         return transformer.prefill(cfg, p, batch)
-    x, cache = _prefill_superblocks(cfg, p, batch)
-    return L.lm_head(cfg, p.tok, x[:, -1:]), cache
+    with tp.entry(*batch["tokens"].shape) as act:
+        x, cache = _prefill_superblocks(cfg, p, batch)
+        return transformer.out_batch(L.lm_head(cfg, p.tok, x[:, -1:]),
+                                     act), cache
 
 
 def decode(cfg: ModelConfig, p, token, pos, cache: dict):
@@ -426,8 +489,15 @@ def decode(cfg: ModelConfig, p, token, pos, cache: dict):
     capacity.  ``pos``: a scalar or a per-slot (B,) vector."""
     if cfg.moe_every == 1:
         return transformer.decode(cfg, p, token, pos, cache)
-    x = L.embed_tokens(cfg, p.tok, token)
-    pos = L.position_vector(pos, x.shape[0], x.device)
+    B = token.shape[0]
+    with tp.entry(B, 1) as act:
+        x = L.embed_tokens(cfg, p.tok, token)
+        pos = L.position_vector(pos, B, x.device)
+        pos = tp.batch_block(pos)
+        return _decode_superblocks(cfg, p, x, pos, cache, act)
+
+
+def _decode_superblocks(cfg: ModelConfig, p, x, pos, cache: dict, act):
     nb, per_d = layout(cfg)
     # (nb, per_d, B, Smax, Hkv, hd) as (nb * per_d, ...): a view, so the
     # in-place writes land in the cache
@@ -439,8 +509,8 @@ def decode(cfg: ModelConfig, p, token, pos, cache: dict):
                                           pos)
         x = transformer._block_decode(cfg, sb.moe_layer, x, cache["k_moe"],
                                       cache["v_moe"], b, pos)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    x = L.apply_norm(p.ln_f, transformer.out_rows(x, act), cfg.norm)
+    return transformer.out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

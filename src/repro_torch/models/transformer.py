@@ -29,6 +29,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed import tp
 from . import layers as L
 
 
@@ -106,10 +107,10 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _block_prefill(cfg: ModelConfig, lp: Block, x, positions,
-                   rope: bool = True):
+                   rope: bool = True, cache: bool = True):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
     a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions,
-                                rope=rope)
+                                rope=rope, cache=cache)
     x = x + a
     h = L.apply_norm(lp.ln2, x, cfg.norm)
     x = x + lp.ffn(cfg, h)
@@ -118,7 +119,7 @@ def _block_prefill(cfg: ModelConfig, lp: Block, x, positions,
 
 def _block(cfg: ModelConfig, lp: Block, x, positions, rope: bool = True):
     """One layer without its K/V: the training forward's block."""
-    return _block_prefill(cfg, lp, x, positions, rope)[0]
+    return _block_prefill(cfg, lp, x, positions, rope, cache=False)[0]
 
 
 def _block_prefill_chunk(cfg: ModelConfig, lp: Block, x, kfull, vfull,
@@ -145,39 +146,66 @@ def _block_decode(cfg: ModelConfig, lp: Block, x, kfull, vfull,
 # ---------------------------------------------------------------------------
 
 def _inputs_to_x(cfg: ModelConfig, p: Transformer, batch: dict):
+    """The residual stream's input; under rules the rank's block of it."""
     if cfg.family == "audio":
-        return batch["frames"].to(torch_dtype(cfg.compute_dtype))
+        x = tp.batch_block(batch["frames"].to(torch_dtype(cfg.compute_dtype)))
+        return tp.model_block(x) if tp.sp(tp.activation()) else x
     return L.embed_tokens(cfg, p.tok, batch["tokens"])
+
+
+def _seq(batch: dict) -> tuple[int, int]:
+    """(B, S) of a batch of token ids or audio frames."""
+    x = batch["frames"] if "frames" in batch else batch["tokens"]
+    return x.shape[0], x.shape[1]
+
+
+def out_rows(x: torch.Tensor, act) -> torch.Tensor:
+    """Under rules, the residual's whole sequence (gathered over ``model``
+    where it is sequence-parallel); ``x`` itself otherwise."""
+    return tp.seq_full(x, tp.sp(act))
+
+
+def out_batch(logits: torch.Tensor, act) -> torch.Tensor:
+    """Under rules, the logits of the whole batch from the rank's rows."""
+    return logits if act is None else tp.batch_full(logits, act.B)
 
 
 def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V): ``lm_head`` for dense
     (and the MoE family's every-layer layout), the ``head`` for audio.  No
-    cache is kept; each block is rematerialized in the backward."""
-    x = _inputs_to_x(cfg, p, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    for lp in p.layers:
-        x = L.remat(_block, cfg, lp, x, positions)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    if cfg.family == "audio":
-        return x @ p.head
-    return L.lm_head(cfg, p.tok, x)
+    cache is kept; each block is rematerialized in the backward.  Under
+    rules the logits of the rank's tokens (``distributed.tp.token_block``:
+    its batch rows and, sequence-parallel, its sequence block), whole over
+    the vocabulary: what the rank's loss reads."""
+    B, S = _seq(batch)
+    with tp.entry(B, S) as act:
+        x = _inputs_to_x(cfg, p, batch)
+        positions = torch.arange(S, device=x.device)
+        for lp in p.layers:
+            x = L.remat(_block, cfg, lp, x, positions)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        if cfg.family == "audio":
+            return L.head_logits(cfg, p.head, x, seq_block=tp.sp(act))
+        return L.lm_head(cfg, p.tok, x, tp.sp(act))
 
 
 def prefill(cfg: ModelConfig, p: Transformer, batch: dict):
     """Forward over whole prompts (token ids, or audio frames) + KV caches;
     returns (last-position logits (B, 1, V), cache {"k", "v"}: (L, B, S,
-    Hkv, hd))."""
-    x = _inputs_to_x(cfg, p, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    ks, vs = [], []
-    for lp in p.layers:
-        x, (k, v) = _block_prefill(cfg, lp, x, positions)
-        ks.append(k)
-        vs.append(v)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    logits = L.lm_head(cfg, p.tok, x[:, -1:])
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    Hkv, hd)).  Under rules the logits are whole and the cache is the
+    rank's block of it (``cache_logical_axes``)."""
+    B, S = _seq(batch)
+    with tp.entry(B, S) as act:
+        x = _inputs_to_x(cfg, p, batch)
+        positions = torch.arange(S, device=x.device)
+        ks, vs = [], []
+        for lp in p.layers:
+            x, (k, v) = _block_prefill(cfg, lp, x, positions)
+            ks.append(k)
+            vs.append(v)
+        x = L.apply_norm(p.ln_f, out_rows(x, act), cfg.norm)
+        logits = out_batch(L.lm_head(cfg, p.tok, x[:, -1:]), act)
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def prefill_chunk(cfg: ModelConfig, p: Transformer, tokens, cache: dict,
@@ -188,33 +216,44 @@ def prefill_chunk(cfg: ModelConfig, p: Transformer, tokens, cache: dict,
     ``start``: (B,) absolute position of each slot's first chunk token;
     ``qlen``: (B,) live tokens.  Returns (logits at each slot's last live
     token ``max(qlen - 1, 0)``, (B, 1, V); cache) — meaningful once the
-    chunk holding the prompt's final token has been consumed."""
-    x = L.embed_tokens(cfg, p.tok, tokens)
+    chunk holding the prompt's final token has been consumed.  Under
+    rules only on a mesh whose ``model`` axis is 1 (the caches are the
+    rank's batch rows)."""
     B, T = tokens.shape
-    start = L.position_vector(start, B, x.device)
-    qlen = L.position_vector(qlen, B, x.device)
-    positions = start[:, None] + torch.arange(T, dtype=torch.int32,
-                                              device=x.device)[None, :]
-    for i, lp in enumerate(p.layers):
-        x = _block_prefill_chunk(cfg, lp, x, cache["k"], cache["v"], i,
-                                 start, qlen, positions)
-    last = (qlen - 1).clamp(min=0).long()
-    x = x[torch.arange(B, device=x.device), last][:, None]   # (B, 1, D)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    with tp.entry(B, T) as act:
+        x = L.embed_tokens(cfg, p.tok, tokens)
+        start = L.position_vector(start, B, x.device)
+        qlen = L.position_vector(qlen, B, x.device)
+        start, qlen = tp.batch_block(start), tp.batch_block(qlen)
+        b = start.shape[0]
+        positions = start[:, None] + torch.arange(T, dtype=torch.int32,
+                                                  device=x.device)[None, :]
+        for i, lp in enumerate(p.layers):
+            x = _block_prefill_chunk(cfg, lp, x, cache["k"], cache["v"], i,
+                                     start, qlen, positions)
+        x = out_rows(x, act)
+        last = (qlen - 1).clamp(min=0).long()
+        x = x[torch.arange(b, device=x.device), last][:, None]   # (b, 1, D)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        return out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def decode(cfg: ModelConfig, p: Transformer, token, pos, cache: dict):
     """One decode step against (L, B, Smax, Hkv, hd) caches, updated in
     place (the returned cache is the same dict of the same tensors).
     ``token``: (B, 1) ids; ``pos``: a scalar or a per-slot (B,) vector —
-    ragged batches decode each slot at its own position."""
-    x = L.embed_tokens(cfg, p.tok, token)
-    pos = L.position_vector(pos, x.shape[0], x.device)
-    for i, lp in enumerate(p.layers):
-        x = _block_decode(cfg, lp, x, cache["k"], cache["v"], i, pos)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    ragged batches decode each slot at its own position.  Under rules
+    ``token`` and ``pos`` are the whole batch's, the caches the rank's
+    block, and the logits whole."""
+    B = token.shape[0]
+    with tp.entry(B, 1) as act:
+        x = L.embed_tokens(cfg, p.tok, token)
+        pos = L.position_vector(pos, B, x.device)
+        pos = tp.batch_block(pos)
+        for i, lp in enumerate(p.layers):
+            x = _block_decode(cfg, lp, x, cache["k"], cache["v"], i, pos)
+        x = L.apply_norm(p.ln_f, out_rows(x, act), cfg.norm)
+        return out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
+from ..distributed import tp
 from . import layers as L
 from . import transformer
 
@@ -128,8 +129,9 @@ def _run(cfg: ModelConfig, p: VLM, batch: dict):
     final residual (B, S, D) and the four cache leaves at prompt
     length."""
     x = L.embed_tokens(cfg, p.tok, batch["tokens"])
-    img = batch["image_embeds"].to(torch_dtype(cfg.compute_dtype))
-    positions = torch.arange(x.shape[1], device=x.device)
+    img = tp.batch_block(batch["image_embeds"].to(
+        torch_dtype(cfg.compute_dtype)))
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     leaves = {name: [] for name in ("k_self", "v_self", "k_cross",
                                     "v_cross")}
     for sb in p.blocks:
@@ -154,26 +156,55 @@ def _run(cfg: ModelConfig, p: VLM, batch: dict):
 # entry points
 # ---------------------------------------------------------------------------
 
+def _cross_layer(cfg: ModelConfig, lp: CrossBlock, x, img, positions):
+    """A cross layer without its K/V: the training forward's block."""
+    h = L.apply_norm(lp.ln1, x, cfg.norm)
+    a, _, _ = L.attention_apply(cfg, lp.xattn, h, positions=positions,
+                                kv_src=img, cache=False)
+    return _gated(cfg, lp, x, a)
+
+
 def forward(cfg: ModelConfig, p: VLM, batch: dict) -> torch.Tensor:
     """``batch``: ``tokens`` (B, S) and ``image_embeds`` (B, n_img, D) ->
-    full-sequence logits (B, S, V)."""
-    x, _ = _run(cfg, p, batch)
-    return L.lm_head(cfg, p.tok, x)
+    full-sequence logits (B, S, V) (under rules of the rank's tokens).
+    No cache is kept; each layer is rematerialized in the backward, as
+    the dense family's are."""
+    with tp.entry(*batch["tokens"].shape) as act:
+        x = L.embed_tokens(cfg, p.tok, batch["tokens"])
+        img = tp.batch_block(batch["image_embeds"].to(
+            torch_dtype(cfg.compute_dtype)))
+        positions = torch.arange(batch["tokens"].shape[1], device=x.device)
+        for sb in p.blocks:
+            for lp in sb.self_layers:
+                x = L.remat(transformer._block, cfg, lp, x, positions)
+            x = L.remat(_cross_layer, cfg, sb.cross, x, img, positions)
+        x = L.apply_norm(p.ln_f, x, cfg.norm)
+        return L.lm_head(cfg, p.tok, x, tp.sp(act))
 
 
 def prefill(cfg: ModelConfig, p: VLM, batch: dict):
     """Whole prompts with their images; returns (last-token logits (B, 1,
-    V), the four-leaf cache with prompt-length self leaves)."""
-    x, cache = _run(cfg, p, batch)
-    return L.lm_head(cfg, p.tok, x[:, -1:]), cache
+    V), the four-leaf cache with prompt-length self leaves; under rules
+    the rank's block)."""
+    with tp.entry(*batch["tokens"].shape) as act:
+        x, cache = _run(cfg, p, batch)
+        x = transformer.out_rows(x, act)[:, -1:]
+        return transformer.out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def decode(cfg: ModelConfig, p: VLM, token, pos, cache: dict):
     """One decode step: the self leaves written in place, the cross leaves
     only read (the returned cache is the same dict of the same tensors).
     ``pos``: a scalar or a per-slot (B,) vector."""
-    x = L.embed_tokens(cfg, p.tok, token)
-    pos = L.position_vector(pos, x.shape[0], x.device)
+    B = token.shape[0]
+    with tp.entry(B, 1) as act:
+        x = L.embed_tokens(cfg, p.tok, token)
+        pos = L.position_vector(pos, B, x.device)
+        pos = tp.batch_block(pos)
+        return _decode(cfg, p, x, pos, cache, act)
+
+
+def _decode(cfg: ModelConfig, p: VLM, x, pos, cache: dict, act):
     nb, per_self = layout(cfg)
     # (nb, per_self, B, Smax, Hkv, hd) as (nb * per_self, ...): a view,
     # so the in-place writes land in the cache
@@ -187,8 +218,8 @@ def decode(cfg: ModelConfig, p: VLM, token, pos, cache: dict):
         a = L.attention_cross_decode(cfg, sb.cross.xattn, h,
                                      cache["k_cross"][b], cache["v_cross"][b])
         x = _gated(cfg, sb.cross, x, a)
-    x = L.apply_norm(p.ln_f, x, cfg.norm)
-    return L.lm_head(cfg, p.tok, x), cache
+    x = L.apply_norm(p.ln_f, transformer.out_rows(x, act), cfg.norm)
+    return transformer.out_batch(L.lm_head(cfg, p.tok, x), act), cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -59,10 +59,13 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def adamw_update(cfg: AdamWConfig, grads, state, params):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
+def adamw_update(cfg: AdamWConfig, grads, state, params, grad_norm=None):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
+    ``grad_norm``: the global norm of ``grads`` when they are one rank's
+    shards (``train.step`` computes it over the mesh); by default the
+    norm of ``grads`` themselves."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = cosine_lr(cfg, step)

@@ -27,11 +27,13 @@ Randomness for parameter init comes from an explicit ``torch.Generator``
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 
 from ..configs.base import ModelConfig, torch_dtype
+from ..distributed import tp
 from ..models import Model
 from ..models import convert
 from ..models import layers as L
@@ -73,16 +75,50 @@ def train_state_specs(model: Model, compress_dcn: bool = False) -> dict:
     return out
 
 
+def local_train_state(model: Model, state: TrainState) -> TrainState:
+    """This rank's block of a (global) training state under the active
+    rules, by :func:`train_state_specs`: the masters and AdamW's moments
+    are sharded as the parameters, the step count whole."""
+    specs = train_state_specs(model, "ef" in state)
+    return convert.local_tree(model.cfg, state, specs)
+
+
 def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
+    """The mean loss over the batch; under rules over the rank's rows (the
+    logits ``forward`` gives)."""
+    labels = batch["labels"]
+    if tp.layout() is not None:   # ``forward`` gives the rank's tokens
+        labels = tp.token_block(labels)
     if cfg.family == "audio":
         logits = model.forward(params, {"frames": batch["frames"]})
-        return cross_entropy(logits, batch["labels"])
+        return cross_entropy(logits, labels)
     fwd_batch = {"tokens": batch["tokens"]}
     if cfg.family == "vlm":
         fwd_batch["image_embeds"] = batch["image_embeds"]
     logits = model.forward(params, fwd_batch)
     # next-token prediction: logits[t] predicts labels[t]
-    return cross_entropy(logits, batch["labels"])
+    return cross_entropy(logits, labels)
+
+
+def _sharded_grads(cfg: ModelConfig, grads, lay):
+    """Each gradient summed over the mesh axes its parameter is replicated
+    on, and the global gradient norm: every rank's squared sums, a leaf's
+    divided by its number of replicas, summed over the mesh."""
+    specs, shapes = convert.param_specs(cfg), convert.param_shapes(cfg)
+
+    def sync(names, shape, g):
+        axes = tp.replicated_axes(names, shape, lay)
+        return tp.reduce(g, axes) if axes else g
+    grads = tree_map(sync, specs, shapes, grads)
+    sq = tree_map(lambda names, shape, g: g.float().square().sum()
+                  / _replicas(names, shape, lay), specs, shapes, grads)
+    total = tp.reduce(sum(tree_leaves(sq)), tuple(lay.sizes))
+    return grads, torch.sqrt(total)
+
+
+def _replicas(names, shape, lay) -> int:
+    return math.prod(lay.size(a)
+                     for a in tp.replicated_axes(names, shape, lay))
 
 
 class _Compute:
@@ -129,6 +165,7 @@ class TrainStep:
         self.microbatches = microbatches
         self.compress_dcn = compress_dcn
         self._compute = _Compute(model)
+        self._grad_norm = None
 
     @property
     def module(self):
@@ -142,13 +179,22 @@ class TrainStep:
         module = self._compute.load(params)
         for p in module.parameters():
             p.grad = None
+        lay = tp.layout()
         with torch.enable_grad():
             loss = _loss_fn(self.model, cfg, module, batch)
+            if lay is not None:
+                # the collectives' backward sums over ranks: each rank's
+                # share of the mesh's mean
+                loss = loss / lay.world
             loss.backward()
         grads = convert.param_tree(
             cfg, module, lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device)
             if p.grad is None else p.grad.float())
+        self._grad_norm = None
+        if lay is not None:
+            grads, self._grad_norm = _sharded_grads(cfg, grads, lay)
+            loss = tp.reduce(loss.detach(), tuple(lay.sizes))
         return loss.detach(), grads
 
     def __call__(self, state: TrainState, batch):
@@ -170,8 +216,12 @@ class TrainStep:
         new_state = dict(state)
         if self.compress_dcn:
             grads, new_state["ef"] = ef_compress_grads(grads, state["ef"])
+        if tp.layout() is not None and (mb > 1 or self.compress_dcn):
+            raise NotImplementedError("microbatches and compress_dcn under "
+                                      "rules on a mesh")
         new_params, new_opt, metrics = adamw_update(
-            self.opt_cfg, grads, state["opt"], params)
+            self.opt_cfg, grads, state["opt"], params,
+            grad_norm=self._grad_norm)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss)
