@@ -255,8 +255,23 @@ the prefill without rules, both timed with CUDA events),
 mesh (within half the int8 step of ``x``) and ``elastic_remesh`` of
 qwen2-0.5b's training state (params, m, v: 5.9 GB of f32) onto a fresh
 mesh, timed, after which one 8 x 1024 train step is bitwise equal to one
-without the move; the group is destroyed before the next phase.  Then,
-without a group: ``ragged_decode``'s log-sum-exp output against its
+without the move.  Then, in the same group: the chunked phase's
+requests served chunked under rules (the chunks through
+``ragged_prefill`` with its log-sum-exp, merged over ``model``; tokens
+as the chunked phase's, 24 ``ragged_prefill`` launches a chunk),
+mamba2-130m's 8 x 1024 prefill with the SSD on the rank's block of
+heads (logits and caches bitwise), the qwen2 step with
+``microbatches=2`` and ``compress_dcn`` (loss bitwise the step without
+rules) and ``launch.train.run`` on the mesh with a checkpoint directory
+(the step-4 checkpoint bitwise the run's state; resumed from step 3
+without a mesh, the fourth loss bitwise the mesh run's).  The group is
+destroyed before the next part: two gloo ranks on the one card (gloo
+takes CUDA tensors for every collective ``tp`` runs) run qwen2-0.5b's
+chunked prefill on a (data 1, model 2) mesh, each rank on its half of a
+2048-row cache (chunks crossing the halves' boundary and the cache's
+end, padded rows, qlen 0): logits against the unsharded chunked prefill
+within 2^-4 of the largest logit, 24 launches a chunk on each rank.
+Then, without a group: ``ragged_decode``'s log-sum-exp output against its
 plain version (B 8, Smax 2048, 14/2 heads, positions mixed) and two
 half-cache calls merged by it against one whole-cache call; the cost
 counter (``distributed/cost.py``) over a real decode chunk and prefill
@@ -706,6 +721,83 @@ def ragged_prefill_case(torch, F, rp, gen, peaks, flush, dt, Smax, starts,
                 bound_by=by, library_ms=lib_ms)
 
 
+PREFILL_LSE_STARTS = [0, 300, 700, 1000, 1500, 1792, 5, 1900]
+PREFILL_LSE_QLENS = [256, 256, 200, 0, 256, 256, 1, 148]
+
+
+def prefill_lse_case(torch, rp, gen, flush, ms_row: float) -> dict:
+    """``ragged_prefill``'s log-sum-exp on the card at qwen2-0.5b's shape
+    (B=8, Smax 2048, 14/2 heads, hd 64, bf16, T=256, mixed starts, padded
+    rows): output and LSE against the plain version's, the output bitwise
+    the route without the LSE; then the cache split into 2 and into 4
+    blocks along Smax, each block's call at starts made local (negative
+    where the block begins past a slot's rows), merged by the LSE against
+    the whole cache's kernel without it: within 2e-2, padded rows exactly
+    0, no NaN.  The route without the LSE timed at row 3's shape against
+    ``ms_row`` (the kernel phase's time of it)."""
+    B, T, Smax, Hq, Hkv, hd = 8, 256, 2048, 14, 2, 64
+    bf = torch.bfloat16
+    q = torch.randn(B, T, Hq, hd, generator=gen, device="cuda").to(bf)
+    k = torch.randn(B, Smax, Hkv, hd, generator=gen, device="cuda").to(bf)
+    v = torch.randn(B, Smax, Hkv, hd, generator=gen, device="cuda").to(bf)
+    start = torch.tensor(PREFILL_LSE_STARTS, dtype=torch.int32, device="cuda")
+    qlen = torch.tensor(PREFILL_LSE_QLENS, dtype=torch.int32, device="cuda")
+    n0 = rp.launches
+    out, lse = rp.ragged_prefill_attention(q, k, v, start, qlen, lse=True)
+    whole = rp.ragged_prefill_attention(q, k, v, start, qlen)
+    ref, ref_lse = rp.ragged_prefill_ref(q, k, v, start, qlen, lse=True)
+    pad = torch.arange(T, device="cuda")[None, :] >= qlen[:, None]
+    check(bool(torch.isneginf(lse[pad]).all()) and bool(torch.isfinite(
+        lse[~pad]).all()), "ragged_prefill lse: -inf exactly on padded rows")
+    err = (out - ref).abs().max().item()
+    err_lse = (lse[~pad] - ref_lse[~pad]).abs().max().item()
+    check(torch.equal(out, whole), "ragged_prefill: the output with the "
+          "log-sum-exp differs from the output without it")
+    check(err <= 2e-2 and err_lse <= 1e-3, f"ragged_prefill lse: max abs "
+          f"err {err} (limit 2e-2), lse {err_lse} (limit 1e-3)")
+    merged_err = {}
+    for n in (2, 4):
+        Sl = Smax // n
+        parts = [rp.ragged_prefill_attention(
+            q, k[:, r * Sl:(r + 1) * Sl].contiguous(),
+            v[:, r * Sl:(r + 1) * Sl].contiguous(), start - r * Sl, qlen,
+            lse=True) for r in range(n)]
+        ls = torch.stack([p[1] for p in parts])
+        m = ls.amax(0)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        w = torch.exp(ls - m)
+        den = w.sum(0)
+        num = sum(w[r][..., None] * parts[r][0] for r in range(n))
+        merged = num / torch.where(den > 0, den, 1.0)[..., None]
+        check(bool(torch.isfinite(merged).all()), f"ragged_prefill: NaN or "
+              f"inf in the merge of {n} blocks")
+        check(not bool(merged[pad].any()), f"ragged_prefill: padded rows "
+              f"of the merge of {n} blocks are not exact zeros")
+        merged_err[n] = (merged - whole).abs().max().item()
+        check(merged_err[n] <= 2e-2, f"ragged_prefill: {n} blocks merged "
+              f"by the log-sum-exp differ from the whole cache by "
+              f"{merged_err[n]} (limit 2e-2)")
+    q1, k1, v1 = q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous()
+    s1 = torch.tensor([768], dtype=torch.int32, device="cuda")
+    l1 = torch.tensor([256], dtype=torch.int32, device="cuda")
+    ms = time_ms(torch, lambda: rp.ragged_prefill_attention(
+        q1, k1, v1, s1, l1), flush)
+    ms_lse = time_ms(torch, lambda: rp.ragged_prefill_attention(
+        q1, k1, v1, s1, l1, lse=True), flush)
+    rp.launches = n0                       # comparison launches
+    print(f"[kernel] ragged_prefill log-sum-exp, B={B} T={T} Smax={Smax} "
+          f"{Hq}/{Hkv} hd {hd} bf16, start {PREFILL_LSE_STARTS} qlen "
+          f"{PREFILL_LSE_QLENS}: out max abs err {err:.3g} (limit 2e-2), "
+          f"lse {err_lse:.3g} (limit 1e-3), -inf on padded rows, bitwise "
+          f"the output without it; 2 and 4 blocks merged by it against the "
+          f"whole cache: {merged_err[2]:.3g}, {merged_err[4]:.3g} (limit "
+          f"2e-2), padded rows 0, no NaN; row 3's shape (T=256 at 768): "
+          f"{ms:.4f} ms without the LSE ({ms_row:.4f} in the case above; "
+          f"0.0190 in PERF.md row 3), {ms_lse:.4f} ms with it")
+    return {"max_abs_err": err, "merged": merged_err, "ms": ms,
+            "ms_lse": ms_lse}
+
+
 def _within(torch, out, ref, rtol: float, atol: float):
     """max |out - ref|, and whether every element is within atol + rtol *
     |ref| (numpy's assert_allclose, the reference tests' form)."""
@@ -1093,6 +1185,7 @@ def phase_kernels(torch, seed, peaks):
                                     1000, [300, 0], [256, 5], 1e-4, False),
                 ragged_prefill_case(torch, F, rp, gen, peaks, flush, f32,
                                     100, [30], [128], 1e-4, False, T=128)]
+    rp_lse = prefill_lse_case(torch, rp, gen, flush, rp_cases[0]["ms"])
     fb_cases = flash_bwd_cases(torch, F, fa, gen, peaks, flush)
     paper = phase_paper_kernels(torch, gen, peaks, flush)
     del flush
@@ -1105,7 +1198,7 @@ def phase_kernels(torch, seed, peaks):
             "flash_attention_bwd": dict(fb_cases[0], max_abs_err=max(
                 c["max_abs_err"] for c in fb_cases[:-3])),
             "ragged_prefill": dict(rp_cases[0], max_abs_err=max(
-                c["max_abs_err"] for c in rp_cases[:-3]))}
+                c["max_abs_err"] for c in (*rp_cases[:-3], rp_lse)))}
 
 
 # ---------------------------------------------------------------------------
@@ -1644,7 +1737,8 @@ def phase_chunked(torch, card, model, params, whole_reqs):
           f"{limit:.4g} (2^-4 of max |logit| {scale:.4g})")
     _profile_window(torch, chain, f"chunked prefill of {len(prompt)} tokens "
                     f"in chunks of {CHUNK}", card)
-    return launches
+    # the streams, for the mesh phase's run of the same requests
+    return dict(launches, tokens=[list(r.out_tokens) for r in reqs])
 
 
 # ---------------------------------------------------------------------------
@@ -3794,16 +3888,282 @@ def _dryrun_cli(card):
           f"bytes, dominant {rf['dominant']} ({card})")
 
 
-def phase_mesh(torch, seed, card, model, params, reqs):
+def _chunked_serve(torch, model, params, reqs, rules_mesh=None):
+    """The chunked phase's requests (each prompt, ``CHUNK_NEW`` new) on a
+    chunked engine, under the rules of ``rules_mesh`` when given: (token
+    streams, chunks, decode steps, launches of ragged_prefill, ragged
+    decode and flash, wall seconds)."""
+    import contextlib
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.serve import Request
+    eng = _chunked_engine(model, params)
+    lat, chunks = [], []
+    eng.on_step_latency = lat.append
+    eng.on_prefill_latency = chunks.append
+    rs = [Request(rid=r.rid, prompt=r.prompt, max_new=CHUNK_NEW)
+          for r in reqs]
+    for r in rs:
+        eng.submit(r)
+    n0 = (rp.launches, rd.launches, fa.launches)
+    rp.launches = rd.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    with use_rules(rules_mesh) if rules_mesh is not None \
+            else contextlib.nullcontext():
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    out = ([list(r.out_tokens) for r in rs], len(chunks), len(lat),
+           (rp.launches, rd.launches, fa.launches),
+           time.perf_counter() - t0)
+    rp.launches, rd.launches, fa.launches = n0
+    return out
+
+
+def _chunked_under_rules(torch, card, model, params, reqs, mesh, free):
+    """The chunked serve under rules on the one-rank mesh: the chunked
+    prefill through the log-sum-exp merge (``ragged_prefill`` with its
+    LSE), tokens as without rules (``free``: the chunked phase's, or run
+    here), launches exact.  Returns its ragged_prefill and ragged_decode
+    launches."""
+    if free is None:
+        free = _chunked_serve(torch, model, params, reqs)[0]
+    toks, n_chunks, steps, (n_rp, n_rd, n_fa), wall = _chunked_serve(
+        torch, model, params, reqs, mesh)
+    L = model.cfg.n_layers
+    check(toks == free, "chunked serve under rules: tokens differ from the "
+          "same prompts without rules")
+    check(n_chunks == sum(-(-len(r.prompt) // CHUNK) for r in reqs),
+          f"chunked serve under rules: {n_chunks} chunks")
+    check((n_rp, n_rd, n_fa) == (n_chunks * L, steps * 4 * L, 0),
+          f"chunked serve under rules: launches {(n_rp, n_rd, n_fa)} != "
+          f"{(n_chunks * L, steps * 4 * L, 0)}")
+    print(f"[mesh] {model.cfg.name} chunked serve under rules (chunks of "
+          f"{CHUNK} through ragged_prefill with its log-sum-exp, merged "
+          f"over model at group size 1): {len(reqs)} prompts x {CHUNK_NEW} "
+          f"tokens identical to the run without rules; launches {n_rp} "
+          f"ragged_prefill ({n_chunks} chunks x {L}), {n_rd} ragged decode "
+          f"({steps} steps x 4 x {L}), 0 flash; wall {wall:.3f} s ({card})")
+    return {"ragged_prefill": n_rp, "ragged_decode": n_rd}
+
+
+SSM_MESH_PREFILL = (8, 1024)   # mamba2-130m's prefill under rules
+
+
+def _ssm_under_rules(torch, np, seed, card, mesh):
+    """mamba2-130m's prefill at full width under rules on the one-rank
+    mesh, its SSD on the rank's block of heads (all 24): logits and both
+    cache leaves bitwise those without rules, ``ssm`` not recorded as
+    computed whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_rules
+    cfg = get_config("mamba2-130m")
+    m, p = _init_family(torch, "mesh", cfg, seed, card)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, SSM_MESH_PREFILL)
+                              ).cuda()
+    with torch.no_grad():
+        want, wc = m.prefill(p, {"tokens": tokens})
+        with use_rules(mesh) as rules:
+            got, gc = m.prefill(p, {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "mamba2 under rules: non-finite")
+    same = torch.equal(got, want) and all(torch.equal(gc[n], wc[n])
+                                          for n in wc)
+    check(same, f"mamba2 prefill under rules differs from the prefill "
+          f"without them (logits max abs "
+          f"{(got.float() - want.float()).abs().max().item()})")
+    rep = sorted(rules.cache.get("replicated", ()))
+    check("ssm" not in rep, f"mamba2 under rules: ssm computed whole {rep}")
+    print(f"[mesh] {cfg.name} prefill {SSM_MESH_PREFILL[0]} x "
+          f"{SSM_MESH_PREFILL[1]} under rules, the SSD on the rank's block "
+          f"of {cfg.ssm_heads} heads (gated norm all-reduced, out_proj "
+          f"row-parallel, state gathered): logits {tuple(got.shape)} and "
+          f"the ssm and conv caches bitwise those without rules; computed "
+          f"whole: {rep} ({card})")
+
+
+def _train_options_under_rules(torch, tm, opt, s0, batch, mesh, card):
+    """One qwen2-0.5b 8 x 1024 step with ``microbatches=2`` and
+    ``compress_dcn`` on the one-rank mesh (each rank's rows in two parts;
+    each leaf's int8 scale from its max all-reduced over the axes it is
+    sharded on): the loss bitwise that of the same step without rules."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim.compression import ef_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import local_train_state
+    kw = dict(microbatches=2, compress_dcn=True)
+    n0 = (fa.launches, fa.bwd_launches)
+    state = dict(s0, ef=ef_init(s0["params"]))
+    loss_free = float(make_train_step(tm, opt, **kw)(state, batch)[1]["loss"])
+    with use_rules(mesh):
+        local = local_train_state(tm, state)
+        del state
+        m = make_train_step(tm, opt, **kw)(local, batch)[1]
+        loss = float(m["loss"])
+    torch.cuda.synchronize()
+    fa.launches, fa.bwd_launches = n0
+    check(loss == loss_free, f"train under rules with microbatches=2 and "
+          f"compress_dcn: loss {loss!r} != {loss_free!r} without rules")
+    print(f"[mesh] {tm.cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} train step "
+          f"with microbatches=2 and compress_dcn under rules: loss "
+          f"{loss!r}, bitwise the step without rules; grad norm "
+          f"{float(m['grad_norm']):.6g} ({card})")
+    del local
+
+
+def _checkpoint_from_mesh(torch, card, mesh):
+    """``launch.train.run`` on the mesh with a checkpoint directory
+    (train_lm's reduced smollm, heads widened to 64, microbatches 2) for 4
+    steps, saving at 3 and 4: the step-4 checkpoint holds its final state
+    bitwise; resumed from step 3 without a mesh, the fourth step's loss is
+    bitwise the mesh run's."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.examples.serve_lm import example_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    n0 = (fa.launches, fa.bwd_launches)
+    arch = "smollm-135m"
+    common = ["--arch", arch, "--reduced", "--global-batch", "16",
+              "--seq-len", "64", "--microbatches", "2", "--device", "cuda",
+              "--d-model", str(example_config(arch).d_model),
+              "--log-every", "100", "--steps", "4"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run = train.run(common + ["--ckpt-dir", d, "--ckpt-every", "3"],
+                        mesh)
+        wall = time.perf_counter() - t0
+        back, extra = load_checkpoint(d, 4, run["state"], device="cuda")
+        pairs = list(zip(tree_leaves(back), tree_leaves(run["state"])))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+        check(differ == 0 and extra == {"data": {"step": 4}},
+              f"checkpoint from the mesh: {differ} of {len(pairs)} leaves "
+              f"differ from the run's state, extra {extra}")
+        shutil.rmtree(os.path.join(d, f"step_{4:08d}"))
+        resumed = train.run(common + ["--ckpt-dir", d, "--resume"])
+    fa.launches, fa.bwd_launches = n0
+    check(resumed["losses"] == run["losses"][3:],
+          f"resumed without the mesh: loss {resumed['losses']} != the mesh "
+          f"run's fourth {run['losses'][3:]}")
+    print(f"[mesh] launch.train.run on the mesh with a checkpoint directory "
+          f"({arch} reduced, d_model {example_config(arch).d_model}, 16 x "
+          f"64, microbatches 2): losses {run['losses']} in {wall:.2f} s; the "
+          f"step-4 checkpoint bitwise the run's state ({len(pairs)} "
+          f"leaves); resumed from step 3 without a mesh: loss "
+          f"{resumed['losses']}, bitwise the mesh run's fourth ({card})")
+
+
+# two chunk calls of 8 slots on a 2048-row cache split over 2 ranks:
+# chunks crossing row 1024 (the ranks' boundary) and the cache's end,
+# starting past it, padded rows, qlen 0
+GLOO_STARTS = ([0, 0, 896, 1792, 0, 512, 1900, 1024],
+               [256, 100, 1152, 2048, 0, 768, 2100, 1280])
+GLOO_QLENS = ([256, 100, 256, 256, 0, 256, 200, 256],
+              [256, 256, 256, 100, 0, 37, 256, 256])
+
+
+def _gloo_chunked_body(seed: int, tokens):
+    """One rank of a 2-rank gloo group on card 0: qwen2-0.5b (seed-``seed``
+    weights) through ``prefill_chunk`` over ``GLOO_STARTS`` /
+    ``GLOO_QLENS`` without rules, then under a (data 1, model 2) mesh on
+    the rank's blocks of the weights and of the cache.  Returns both
+    calls' logits and the ruled run's ragged_prefill launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert, get_model
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    full = model.init(gen)
+    B = tokens.shape[1]
+    axes = model.cache_logical_axes()
+
+    def chain(params, ruled: bool):
+        cache = {n: torch.zeros(tp.local_shape(axes[n], s) if ruled else s,
+                                dtype=dt, device="cuda")
+                 for n, (s, dt) in model.cache_spec(B, 2048).items()}
+        out = []
+        for tok, st, ql in zip(tokens, GLOO_STARTS, GLOO_QLENS):
+            logits, cache = model.prefill_chunk(
+                params, tok.cuda(), cache,
+                torch.tensor(st, dtype=torch.int32, device="cuda"),
+                torch.tensor(ql, dtype=torch.int32, device="cuda"))
+            out.append(logits.float().cpu())
+        return torch.stack(out)
+    with torch.no_grad():
+        want = chain(full, False)
+        mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+        with use_rules(mesh):
+            local = convert.params_from_numpy(cfg, convert.local_tree(
+                cfg, convert.param_tree(cfg, full)), "cuda")
+            del full
+            rp.launches = 0
+            got = chain(local, True)
+            n = rp.launches
+    return {"want": want.numpy(), "got": got.numpy(), "launches": n}
+
+
+def _gloo_chunked(torch, np, seed, card):
+    """``_gloo_chunked_body`` on two gloo ranks over the one card: each
+    rank's logits against the unsharded chunked prefill's within 2^-4 of
+    the largest logit, 24 ragged_prefill launches a chunk on each rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ranks import run_ranks
+    cfg = get_config("qwen2-0.5b")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (len(GLOO_STARTS), 8, CHUNK))).long()
+    t0 = time.perf_counter()
+    outs = run_ranks(_gloo_chunked_body, 2, seed, tokens, device="cpu",
+                     timeout=300)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        scale = float(np.abs(o["want"]).max())
+        diff = float(np.abs(o["got"] - o["want"]).max())
+        check(np.isfinite(o["got"]).all() and diff <= LOGIT_REL_LIMIT * scale,
+              f"gloo rank {r}: chunked prefill over half the cache differs "
+              f"from the unsharded one by {diff} (limit "
+              f"{LOGIT_REL_LIMIT * scale})")
+        want_n = len(GLOO_STARTS) * cfg.n_layers
+        check(o["launches"] == want_n, f"gloo rank {r}: {o['launches']} "
+              f"ragged_prefill launches != {want_n}")
+        same = int((o["got"].argmax(-1) == o["want"].argmax(-1)).sum())
+        print(f"[mesh] gloo rank {r} of 2 on one card, (data 1, model 2): "
+              f"qwen2-0.5b chunked prefill, {len(GLOO_STARTS)} calls of 8 "
+              f"x {CHUNK}, starts {GLOO_STARTS}, qlens {GLOO_QLENS}, each "
+              f"rank on 1024 of the 2048 cache rows, merged by the "
+              f"log-sum-exp: logits max abs diff {diff:.4g} from the "
+              f"unsharded (limit {LOGIT_REL_LIMIT * scale:.4g}), argmax "
+              f"equal in {same} of {o['got'].shape[0] * o['got'].shape[1]}; "
+              f"{o['launches']} ragged_prefill launches; wall {wall:.1f} s "
+              f"for both ranks ({card})")
+
+
+def phase_mesh(torch, seed, card, model, params, reqs, chunked=None):
     """The distributed layer on the card: a one-rank NCCL group (card 0
     bound) and a (data 1, model 1) ``DeviceMesh``; under ``use_rules``
     the serve phase's model on 4 of its prompts (tokens as without
-    rules, exact launches), granite-moe-1b-a400m's 8 x 1024 prefill
-    through ``moe_ep`` (48 ``all_to_all_single`` calls, logits bitwise
-    those without rules, both timed), ``compressed_allreduce_demo`` on a
-    (pod 1, data 1) mesh, and ``elastic_remesh`` of qwen2-0.5b's whole
-    training state onto a fresh mesh (one step after it bitwise one step
-    without it).  Returns the ruled runs' launches."""
+    rules, exact launches) and chunked on all of them (tokens as the
+    chunked phase's, ``chunked``, or a run here without rules),
+    granite-moe-1b-a400m's 8 x 1024 prefill through ``moe_ep`` (48
+    ``all_to_all_single`` calls, logits bitwise those without rules, both
+    timed), mamba2-130m's prefill with the SSD over its heads (bitwise),
+    ``compressed_allreduce_demo`` on a (pod 1, data 1) mesh, a qwen2-0.5b
+    train step with microbatches and ``compress_dcn`` (loss bitwise),
+    ``elastic_remesh`` of qwen2-0.5b's whole training state onto a fresh
+    mesh (one step after it bitwise one step without it), and a
+    checkpoint written from the mesh, resumed without it.  Returns the
+    ruled runs' launches."""
     import contextlib
     import tempfile
 
@@ -3877,6 +4237,9 @@ def phase_mesh(torch, seed, card, model, params, reqs):
                 coll[name] = counter.totals.coll_counts
         rd.launches, fa.launches = n0
         launches = {"flash_attention": n_fa, "ragged_decode": n_rd}
+        for k, n in _chunked_under_rules(torch, card, model, params, reqs,
+                                         mesh, chunked).items():
+            launches[k] = launches.get(k, 0) + n
         print(f"[mesh] {cfg.name} under rules, through the sharded dense "
               f"layers (every collective at group size 1): "
               f"{len(prompts)} prompts x 64 "
@@ -3927,6 +4290,8 @@ def phase_mesh(torch, seed, card, model, params, reqs):
               f"{ms_free2:.3f} ms ({card})")
         del gm, gp, got, want
         torch.cuda.empty_cache()
+        _ssm_under_rules(torch, np, seed, card, mesh)
+        torch.cuda.empty_cache()
 
         # compressed_allreduce_demo on (pod 1, data 1)
         gen = torch.Generator(device="cuda")
@@ -3968,6 +4333,8 @@ def phase_mesh(torch, seed, card, model, params, reqs):
         train_totals = _train_under_rules(torch, tm, opt, s0, batch, mesh,
                                           float(wm["loss"]), card)
         fa.launches, fa.bwd_launches = n0
+        _train_options_under_rules(torch, tm, opt, s0, batch, mesh, card)
+        torch.cuda.empty_cache()
         n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(s0))
         placed = elastic_remesh(s0, shardings, mesh)
         del s0
@@ -3997,8 +4364,10 @@ def phase_mesh(torch, seed, card, model, params, reqs):
         step_ms = _train_step_times(torch, tm, opt, batch, seed, card)
         fa.launches, fa.bwd_launches = n0
         del batch
+        _checkpoint_from_mesh(torch, card, mesh)
     check(not dist.is_initialized(), "the process group outlived the phase")
     torch.cuda.empty_cache()
+    _gloo_chunked(torch, np, seed, card)
     n0 = (rd.launches, fa.launches)
     decode = _counter_against_card(torch, model, params, card)
     rd.launches, fa.launches = n0
@@ -4167,7 +4536,8 @@ def main() -> int:
         fleet = phase_fleet(torch, card, model, params, reqs)
         region = phase_region(torch, args.seed, card, model, params, reqs)
         phase_audit(torch, card, model, params)
-        mesh = phase_mesh(torch, args.seed, card, model, params, reqs)
+        mesh = phase_mesh(torch, args.seed, card, model, params, reqs,
+                          chunked["tokens"])
         del model, params
         # every serving path's launches: each phase's run counts from 0
         for path in (phase_moe(torch, args.seed, card, reqs),

@@ -230,9 +230,14 @@ def reduce(x: torch.Tensor, axes) -> torch.Tensor:
     return x
 
 
-def reduce_max(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """All-reduce (max) of ``x`` over ``axis``; no gradient (inference)."""
-    return _reduce_fwd(x.detach(), layout().group(axis), dist.ReduceOp.MAX)
+def reduce_max(x: torch.Tensor, axes) -> torch.Tensor:
+    """All-reduce (max) of ``x`` over the mesh ``axes`` (a name or names;
+    none: ``x`` itself); no gradient."""
+    lay = layout()
+    x = x.detach()
+    for a in _axes(axes):
+        x = _reduce_fwd(x, lay.group(a), dist.ReduceOp.MAX)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ragged_prefill_launch.argtypes = [
         I,                 # dtype code
         P, P, P, P, P, P,  # q, k, v, start, qlen, out
+        P,                 # lse (float32 (B, T, Hq)) or null
         I, I, I, I, I, I,  # B, T, Smax, Hkv, rep, hd
         F,                 # scale
         P]                 # stream

@@ -47,6 +47,14 @@
 // masked past each row's position; p is rounded to the cache's type before
 // the PV product; the output is f32 acc / max(l, 1e-30), exact zeros on
 // padded rows.
+//
+// kLse (a template parameter of both routes, chosen by the launcher): also
+// write each row's log-sum-exp of its scores, (B, T, Hq) f32, the weight a
+// merge of the results over blocks of the cache takes.  A block of the
+// cache that begins past a row sees it at a negative local start: the row
+// reads no key (its horizon is below 0, so the block streams no K/V tile
+// for it) and gives out 0 and lse -inf, as a padded row does.  Without
+// kLse the body is the one the unsharded prefill has always run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,16 +79,16 @@ constexpr int kStages = 2;             // K/V ring depth per warpgroup
 
 // Grid n_tiles * Hkv * B, 256 threads.  q: (B, T, Hkv * rep, HD) bf16; the
 // cache through kmap / vmap; start, qlen: (B,) int32; out: (B, T, Hkv *
-// rep, HD) f32.
-template <int HD>
+// rep, HD) f32; lse (kLse only): (B, T, Hkv * rep) f32.
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(256)
 prefill_bf16_wgmma(const bf16* __restrict__ q,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, MapAxes kax,
                    MapAxes vax, const int* __restrict__ start,
                    const int* __restrict__ qlen, float* __restrict__ out,
-                   int B, int n_tok, int Smax, int Hkv, int rep,
-                   float scale_log2) {
+                   float* __restrict__ lse, int B, int n_tok, int Smax,
+                   int Hkv, int rep, float scale_log2) {
   constexpr int NO = HD / 2;                 // O accumulators per thread
   constexpr int kTile = kRows * HD;          // elements of a 64-row tile
   constexpr int kTileBytes = kTile * 2;
@@ -107,8 +115,9 @@ prefill_bf16_wgmma(const bf16* __restrict__ q,
   // capped at the cache; none when its first token is padding
   const int t_first = i0 / rep;
   const int t_end = (min(i0 + kRows, rows) - 1) / rep;   // its last token
-  const int n_keys =
+  int n_keys =
       t_first < qlen_b ? min(start_b + min(t_end, qlen_b - 1) + 1, Smax) : 0;
+  if constexpr (kLse) n_keys = max(n_keys, 0);   // a negative local start
   const int n_kt = (n_keys + kRows - 1) / kRows;
   // a key tile needs masking only if it crosses the smallest horizon of
   // the tile's rows, which is -1 when a row is padding or past the chunk
@@ -296,7 +305,15 @@ prefill_bf16_wgmma(const bf16* __restrict__ q,
     const float m1 = x_ml[r * 128 + wtid], l1 = x_ml[(2 + r) * 128 + wtid];
     const float M = fmaxf(m[r], m1);
     const float c0 = fast_exp2(m[r] - M), c1 = fast_exp2(m1 - M);
-    const float inv = 1.f / fmaxf(c0 * l[r] + c1 * l1, 1e-30f);
+    const float L = c0 * l[r] + c1 * l1;
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    if constexpr (kLse) {
+      // m is in log2 units of the scaled scores: lse = (M + log2 L) ln 2
+      if ((lane & 3) == 0)
+        lse[((size_t)b * n_tok + t) * Hq + h] =
+            live && L > 0.f ? (M + log2f(L)) * 0.6931471805599453f
+                            : __uint_as_float(0xff800000u);
+    }
     float* dst = out + (((size_t)b * n_tok + t) * Hq + h) * HD +
                  2 * (lane & 3);
 #pragma unroll
@@ -312,16 +329,16 @@ prefill_bf16_wgmma(const bf16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* start, const void* qlen, void* out,
-                        int B, int n_tok, int Smax, int Hkv, int rep,
-                        float scale, cudaStream_t stream) {
+                        void* lse, int B, int n_tok, int Smax, int Hkv,
+                        int rep, float scale, cudaStream_t stream) {
   // align + Q + 2 warpgroups x kStages x (K, V)
   constexpr int kSmem = 1024 + (1 + 4 * kStages) * kRows * HD * 2;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_bf16_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      prefill_bf16_wgmma<HD, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   // the (B, Smax, Hkv, hd) cache as (batch, head, seq) strides
   const long long st[3] = {1LL * Smax * Hkv * HD, HD, 1LL * Hkv * HD};
@@ -333,11 +350,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const long long items =
       1LL * ((n_tok * rep + kRows - 1) / kRows) * Hkv * B;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
-  prefill_bf16_wgmma<HD><<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
-      static_cast<const bf16*>(q), km, vm, ka, va,
-      static_cast<const int*>(start), static_cast<const int*>(qlen),
-      static_cast<float*>(out), B, n_tok, Smax, Hkv, rep,
-      scale * 1.4426950408889634f);
+  prefill_bf16_wgmma<HD, kLse>
+      <<<static_cast<unsigned>(items), 256, kSmem, stream>>>(
+          static_cast<const bf16*>(q), km, vm, ka, va,
+          static_cast<const int*>(start), static_cast<const int*>(qlen),
+          static_cast<float*>(out), static_cast<float*>(lse), B, n_tok, Smax,
+          Hkv, rep, scale * 1.4426950408889634f);
   return cudaSuccess;
 }
 
@@ -346,16 +364,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 constexpr int kTPR = 8;              // threads per folded row
 
 // q: (B, T, Hkv * rep, HD); k, v: (B, Smax, Hkv, HD); start, qlen: (B,)
-// int32; out: (B, T, Hkv * rep, HD) f32.  Grid (ceil(T * rep / BQ), Hkv,
+// int32; out: (B, T, Hkv * rep, HD) f32; lse (kLse only): (B, T, Hkv *
+// rep) f32.  Grid (ceil(T * rep / BQ), Hkv,
 // B), kTPR * BQ threads: eight threads share a folded row, each owning
 // every eighth element of hd, so a score is eight partial dot products
 // joined by three warp shuffles; K/V tiles are staged in shared memory.
-template <int HD, int BQ, int BK>
+template <int HD, int BQ, int BK, bool kLse>
 __global__ void __launch_bounds__(kTPR * BQ)
 prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const int* __restrict__ start,
             const int* __restrict__ qlen, float* __restrict__ out,
-            int n_tok, int Smax, int Hkv, int rep, float scale) {
+            float* __restrict__ lse, int n_tok, int Smax, int Hkv, int rep,
+            float scale) {
   constexpr int kThreads = kTPR * BQ;
   constexpr int DPT = HD / kTPR;                  // hd elements per thread
   __shared__ float k_s[BK][HD];
@@ -443,49 +463,83 @@ prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
       out[row_off + e * kTPR + part] = acc[e] * inv;
+    if constexpr (kLse) {
+      if (part == 0)
+        lse[row_off / HD] = live && l > 0.f ? m + logf(l)
+                                            : __uint_as_float(0xff800000u);
+    }
   }
 }
 
-template <int HD, int BQ, int BK>
+template <int HD, int BQ, int BK, bool kLse>
 void launch_f32(const void* q, const void* k, const void* v,
-                const void* start, const void* qlen, void* out, int B,
-                int n_tok, int Smax, int Hkv, int rep, float scale,
+                const void* start, const void* qlen, void* out, void* lse,
+                int B, int n_tok, int Smax, int Hkv, int rep, float scale,
                 cudaStream_t stream) {
   const dim3 grid((n_tok * rep + BQ - 1) / BQ, Hkv, B);
-  prefill_f32<HD, BQ, BK><<<grid, kTPR * BQ, 0, stream>>>(
+  prefill_f32<HD, BQ, BK, kLse><<<grid, kTPR * BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(start),
-      static_cast<const int*>(qlen), static_cast<float*>(out), n_tok, Smax,
-      Hkv, rep, scale);
+      static_cast<const int*>(qlen), static_cast<float*>(out),
+      static_cast<float*>(lse), n_tok, Smax, Hkv, rep, scale);
+}
+
+// the instantiation with the log-sum-exp where ``lse`` is given, the body
+// without it otherwise
+template <int HD, int BQ, int BK>
+void dispatch_f32(const void* q, const void* k, const void* v,
+                  const void* start, const void* qlen, void* out, void* lse,
+                  int B, int n_tok, int Smax, int Hkv, int rep, float scale,
+                  cudaStream_t s) {
+  if (lse != nullptr)
+    launch_f32<HD, BQ, BK, true>(q, k, v, start, qlen, out, lse, B, n_tok,
+                                 Smax, Hkv, rep, scale, s);
+  else
+    launch_f32<HD, BQ, BK, false>(q, k, v, start, qlen, out, nullptr, B,
+                                  n_tok, Smax, Hkv, rep, scale, s);
+}
+
+template <int HD>
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
+                          const void* start, const void* qlen, void* out,
+                          void* lse, int B, int n_tok, int Smax, int Hkv,
+                          int rep, float scale, cudaStream_t s) {
+  if (lse != nullptr)
+    return launch_bf16<HD, true>(q, k, v, start, qlen, out, lse, B, n_tok,
+                                 Smax, Hkv, rep, scale, s);
+  return launch_bf16<HD, false>(q, k, v, start, qlen, out, nullptr, B,
+                                n_tok, Smax, Hkv, rep, scale, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 float32, 1 bfloat16.  lse: null (not written), or (B, T, Hq)
+// floats for each row's log-sum-exp.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for a shape the kernel does not take, or a
 // cache TMA cannot address).
 extern "C" int ragged_prefill_launch(int dtype, const void* q, const void* k,
                                      const void* v, const void* start,
-                                     const void* qlen, void* out, int B,
-                                     int n_tok, int Smax, int Hkv, int rep,
-                                     int hd, float scale, void* stream) {
+                                     const void* qlen, void* out, void* lse,
+                                     int B, int n_tok, int Smax, int Hkv,
+                                     int rep, int hd, float scale,
+                                     void* stream) {
   if (B <= 0 || n_tok <= 0 || Smax <= 0 || Hkv <= 0 || rep < 1 ||
       rep > kMaxRep || B > 65535 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (dtype == 0 && hd == 64)
-    launch_f32<64, 32, 64>(q, k, v, start, qlen, out, B, n_tok, Smax, Hkv,
-                           rep, scale, s);
+    dispatch_f32<64, 32, 64>(q, k, v, start, qlen, out, lse, B, n_tok, Smax,
+                             Hkv, rep, scale, s);
   else if (dtype == 0 && hd == 128)
-    launch_f32<128, 32, 32>(q, k, v, start, qlen, out, B, n_tok, Smax, Hkv,
-                            rep, scale, s);
+    dispatch_f32<128, 32, 32>(q, k, v, start, qlen, out, lse, B, n_tok,
+                              Smax, Hkv, rep, scale, s);
   else if (dtype == 1 && hd == 64)
-    err = launch_bf16<64>(q, k, v, start, qlen, out, B, n_tok, Smax, Hkv,
-                          rep, scale, s);
+    err = dispatch_bf16<64>(q, k, v, start, qlen, out, lse, B, n_tok, Smax,
+                            Hkv, rep, scale, s);
   else if (dtype == 1 && hd == 128)
-    err = launch_bf16<128>(q, k, v, start, qlen, out, B, n_tok, Smax, Hkv,
-                           rep, scale, s);
+    err = dispatch_bf16<128>(q, k, v, start, qlen, out, lse, B, n_tok, Smax,
+                             Hkv, rep, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return static_cast<int>(err);

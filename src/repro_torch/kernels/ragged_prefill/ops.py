@@ -30,7 +30,7 @@ HEAD_DIMS = (64, 128)        # head widths the kernel is built for
 
 def ragged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, start: torch.Tensor,
-                             qlen: torch.Tensor) -> torch.Tensor:
+                             qlen: torch.Tensor, *, lse: bool = False):
     """Chunked GQA prefill attention against a ragged batch cache.
 
     q: (B, T, Hq, hd) — chunk token ``i`` of slot ``b`` is at absolute
@@ -38,20 +38,26 @@ def ragged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     holding the chunk's K/V rows; start, qlen: (B,) int32 (chunk origin and
     live rows).  A chunk may cross or start past the cache's end: a query
     at ``start + i >= Smax`` attends to all ``Smax`` rows.  Returns (B, T,
-    Hq, hd) float32 with rows ``i >= qlen[b]`` exact zeros."""
+    Hq, hd) float32 with rows ``i >= qlen[b]`` exact zeros, and with
+    ``lse`` also the (B, T, Hq) float32 log-sum-exp of each row's scores:
+    what a merge of the results over blocks of the cache weighs them by.
+    A start may then be negative (the start made local to a block that
+    begins past it): a row at ``start + i < 0`` reads no row, and it and
+    a padded row give 0 and -inf."""
     B, T, Hq, hd = q.shape
 
     def body():
         if q.device.type == "cpu":
-            return ragged_prefill_ref(q, k_cache, v_cache, start, qlen)
-        return _launch(q, k_cache, v_cache, start, qlen)
+            return ragged_prefill_ref(q, k_cache, v_cache, start, qlen,
+                                      lse=lse)
+        return _launch(q, k_cache, v_cache, start, qlen, lse)
     # priced at every (chunk row, cache row) pair, as the shapes allow
     return _priced.run("ragged_prefill",
                        lambda: 4 * B * Hq * hd * T * k_cache.shape[1],
                        (q, k_cache, v_cache, start, qlen), body)
 
 
-def _launch(q, k_cache, v_cache, start, qlen):
+def _launch(q, k_cache, v_cache, start, qlen, want_lse=False):
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"ragged_prefill runs on cuda or cpu, not "
@@ -94,12 +100,15 @@ def _launch(q, k_cache, v_cache, start, qlen):
         check_tma(v_cache.transpose(1, 2), "v_cache")
     lib = _build.library()
     out = torch.empty((B, T, Hq, hd), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, T, Hq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     with torch.cuda.device(q.device):
         err = lib.ragged_prefill_launch(
             code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            start.data_ptr(), qlen.data_ptr(), out.data_ptr(), B, T, Smax,
+            start.data_ptr(), qlen.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, T, Smax,
             Hkv, Hq // Hkv, hd, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ragged_prefill")
     launches += 1
-    return out
+    return (out, lse) if want_lse else out

@@ -64,12 +64,13 @@ def _fake(spec: torch.Tensor) -> torch.Tensor:
 
 def trace(cfg, kind: str, batch: dict, mesh, dpp: int | None = None,
           opt: AdamWConfig | None = None, rules_overrides=None,
-          seq: int = 0):
+          seq: int = 0, microbatches: int = 1):
     """Trace one step of ``cfg`` on fake tensors as this rank of ``mesh``
     (a ``DeviceMesh`` over a fake or real group): ``kind`` ``train`` (one
-    AdamW step), ``prefill`` or ``decode`` (one token against a cache of
-    ``seq`` rows); ``batch`` holds the global inputs' stand-ins
-    (``configs.input_specs``).  Returns (counter, rules)."""
+    AdamW step over ``microbatches`` parts of the batch), ``prefill`` or
+    ``decode`` (one token against a cache of ``seq`` rows); ``batch``
+    holds the global inputs' stand-ins (``configs.input_specs``).  Returns
+    (counter, rules)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     convert.param_shapes(cfg)                  # built before the counter
     model = get_model(cfg)
@@ -80,7 +81,7 @@ def trace(cfg, kind: str, batch: dict, mesh, dpp: int | None = None,
             opt = opt or AdamWConfig()
             state = local_train_state(model, train_state_init(
                 model, gen, opt, device="cpu"))
-            step = make_train_step(model, opt)
+            step = make_train_step(model, opt, microbatches=microbatches)
             step._compute.load(state["params"])       # the compute copy
             inputs = {k: _fake(v) for k, v in batch.items()}
             counter.track((state, inputs, list(step.module.parameters())))
@@ -115,8 +116,10 @@ def trace(cfg, kind: str, batch: dict, mesh, dpp: int | None = None,
 
 def run_cell(arch: str, shape: str, mesh_kind: str,
              cfg_overrides: dict | None = None,
-             rules_overrides: dict | None = None) -> dict:
-    """One cell's record (the reference's ``run_cell``)."""
+             rules_overrides: dict | None = None,
+             microbatches: int = 1) -> dict:
+    """One cell's record (the reference's ``run_cell``; ``microbatches``
+    splits a train step's batch, as the reference's does)."""
     cfg = get_config(arch)
     skip = shape_skip_reason(cfg, shape)
     if skip:
@@ -136,7 +139,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         dpp = devices_per_pod(dev_mesh)
         counter, rules = trace(cfg, kind, input_specs(cfg, shape), dev_mesh,
                                dpp, rules_overrides=rules_overrides,
-                               seq=SHAPES[shape]["seq_len"])
+                               seq=SHAPES[shape]["seq_len"],
+                               microbatches=microbatches)
     finally:
         dist.destroy_process_group()
     t_trace = time.perf_counter() - t0

@@ -26,6 +26,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import AsyncCheckpointer, latest_step, load_checkpoint
 from ..configs import ARCH_IDS, get_config
@@ -34,7 +35,8 @@ from ..device import resolve_device
 from ..models import get_model
 from ..optim.adamw import AdamWConfig
 from ..distributed.sharding import use_rules
-from ..train.step import local_train_state, make_train_step, train_state_init
+from ..train.step import (local_train_state, make_train_step,
+                          train_state_init, whole_train_state)
 
 
 def _normal(shape, seed: int, device) -> torch.Tensor:
@@ -50,8 +52,11 @@ def run(argv=None, mesh=None) -> dict:
     ``mesh`` (a ``DeviceMesh`` over a process group the caller started,
     every rank calling ``run``), the steps run under its rules: the
     state is each rank's block (``train.step.local_train_state``), the
-    dense layers sharded (``distributed.tp``); checkpoints are not
-    written from a mesh."""
+    layers sharded (``distributed.tp``).  A checkpoint from a mesh holds
+    the whole state, gathered (``train.step.whole_train_state``) and
+    written by rank 0 while the others wait, in the same files as one
+    without: a run resumes it onto any mesh, or none, by loading it whole
+    and taking its rank's block.  ``"state"`` is the rank's block."""
     with use_rules(mesh) if mesh is not None else contextlib.nullcontext():
         return _run(argv, mesh)
 
@@ -108,8 +113,6 @@ def _run(argv, mesh) -> dict:
             start_step = extra["data"]["step"]
             print(f"resumed from step {last} (data step {start_step})")
     if mesh is not None:
-        if ckpt:
-            raise NotImplementedError("checkpoints from a mesh")
         state = local_train_state(model, state)
 
     data = SyntheticLMData(DataConfig(
@@ -141,13 +144,29 @@ def _run(argv, mesh) -> dict:
                   f"grad_norm {float(metrics['grad_norm']):.3f} "
                   f"tok/s {tps:,.0f}", flush=True)
         if ckpt and (i + 1) % args.ckpt_every == 0:
-            ckpt.save(i + 1, state, extra={"data": {"step": i + 1}})
+            _save(ckpt, i + 1, model, state, mesh)
     if ckpt:
-        ckpt.save(args.steps, state, extra={"data": {"step": args.steps}})
+        _save(ckpt, args.steps, model, state, mesh)
         ckpt.wait()
+        if mesh is not None:
+            dist.barrier()          # rank 0's files are on disk
     data.close()
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
             "step_s": step_s, "state": state, "step": step_fn}
+
+
+def _save(ckpt: AsyncCheckpointer, step: int, model, state, mesh) -> None:
+    """``state`` into ``ckpt`` at ``step``; from a mesh the whole state,
+    every rank gathering, rank 0 writing (its snapshot taken before the
+    others go on)."""
+    extra = {"data": {"step": step}}
+    if mesh is None:
+        ckpt.save(step, state, extra=extra)
+        return
+    whole = whole_train_state(model, state)
+    if dist.get_rank() == 0:
+        ckpt.save(step, whole, extra=extra)
+    dist.barrier()
 
 
 if __name__ == "__main__":

@@ -132,15 +132,16 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # layer bodies
 # ---------------------------------------------------------------------------
 
-def _mamba_full(cfg: ModelConfig, lp: MambaBlock, x):
-    out, state = S.ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln1, x, cfg.norm))
+def _mamba_full(cfg: ModelConfig, lp: MambaBlock, x, state: bool = True):
+    out, st = S.ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln1, x, cfg.norm),
+                         state)
     x = x + out
-    return x + lp.ffn(cfg, L.apply_norm(lp.ln2, x, cfg.norm)), state
+    return x + lp.ffn(cfg, L.apply_norm(lp.ln2, x, cfg.norm)), st
 
 
 def _mamba(cfg: ModelConfig, lp: MambaBlock, x):
     """A mamba layer without its state: the training forward's block."""
-    return _mamba_full(cfg, lp, x)[0]
+    return _mamba_full(cfg, lp, x, False)[0]
 
 
 def _mamba_step(cfg: ModelConfig, lp: MambaBlock, x, ssm: torch.Tensor,

@@ -297,7 +297,8 @@ def attention_decode_inplace(cfg: ModelConfig, p: Attention,
     if act is None:
         out = decode_attention(cfg, q, kl, vl, pos_vec)
     else:
-        out = _merged_decode(q, kl, vl, local).reshape(B, 1, -1).to(h.dtype)
+        out = _merged(ragged_decode_attention, q.reshape(B, -1, cfg.hd), kl,
+                      vl, local).reshape(B, 1, -1).to(h.dtype)
     return _row_out(cfg, p, out, False, tp.sp(act))
 
 
@@ -330,41 +331,53 @@ def attention_prefill_chunk_inplace(cfg: ModelConfig, p: Attention,
 
     Padded rows (``i >= qlen[b]``) and rows at or past the cache
     (``start[b] + i >= Smax``) must not reach the cache, where the
-    reference drops them with an out-of-bounds scatter.  Only the chunk's
-    first ``W = min(T, Smax)`` rows are candidates: a row ``i >= Smax``
-    sits at position ``>= Smax`` and is never live.  Row ``i < W`` writes
-    row ``(start[b] + i) % Smax``; those rows are distinct within a slot,
-    so no index repeats in the assignment; the live ones take the chunk's
-    K/V, and every other one takes back its own old value, gathered before
-    the write.  That is exact, and needs no host sync.  The attention
-    still takes all ``qlen[b]`` queries: one past the cache attends to all
-    ``Smax`` rows, as the reference's does."""
-    lay = tp.layout()
-    if tp.activation() is not None:
-        if lay.model > 1:
-            raise NotImplementedError(
-                "chunked prefill under rules with a model axis of "
-                f"{lay.model}: the ragged prefill kernel has no log-sum-exp "
-                "output to merge cache shards by yet")
-        p = tp.full_module(p, ATTN_AXES, _attn_shapes(cfg))
-    cdt = torch_dtype(cfg.compute_dtype)
-    x = x.to(cdt)
-    B, T, _ = x.shape
-    kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Smax, Hkv, hd)
-    Smax = kl.shape[1]
-    W = min(T, Smax)
-    q, k, v = _qkv(cfg, p, x, x, positions, positions, rope)
-    pos_w = positions[:, :W]
-    rows = pos_w.long() % Smax
-    batch_ix = torch.arange(B, device=x.device)[:, None]
-    live = ((torch.arange(W, device=x.device)[None, :] < qlen[:, None])
-            & (pos_w < Smax))[:, :, None, None]
-    kl[batch_ix, rows] = torch.where(live, k[:, :W].to(kl.dtype),
+    reference drops them with an out-of-bounds scatter.  The candidates
+    are ``W = min(T, Sl)`` consecutive rows of the cache block (``Sl`` its
+    rows: ``Smax`` without rules) from the first the chunk reaches in it,
+    taken modulo ``Sl``, so no index repeats in the assignment: block row
+    ``r`` takes chunk row ``r + off - start[b]`` (``off`` the block's
+    first global row) where that row is live, and its own old value,
+    gathered before the write, otherwise.  A block row lies below ``Smax``,
+    so a row past the cache finds no place.  That is exact, and needs no
+    host sync.  The attention still takes all ``qlen[b]`` queries: one past
+    the cache attends to all ``Smax`` rows, as the reference's does.
+
+    Under rules (``distributed.tp``) ``x`` is the rank's rows and the
+    caches its block, sharded along ``Smax`` over ``model`` (the
+    reference's ``seq_mp``), as in :func:`attention_decode_inplace`: q, k
+    and v whole over their heads; each live row written only by the rank
+    that owns its position; ``ragged_prefill`` over the rank's rows at
+    starts made local (negative where the block begins past a row), with
+    its log-sum-exp, and the ranks' results merged by it over ``model``;
+    ``wo`` row-parallel."""
+    act = tp.activation()
+    h = tp.seq_full(x.to(torch_dtype(cfg.compute_dtype)), tp.sp(act))
+    B, T, _ = h.shape
+    bq, bk, bv = ("bq", "bk", "bv") if cfg.qkv_bias else (None,) * 3
+    q = _proj_heads(cfg, p, "wq", h, bq)
+    k = _proj_heads(cfg, p, "wk", h, bk)
+    v = _proj_heads(cfg, p, "wv", h, bv)
+    q, k, v = _heads(cfg, p, q, k, v, positions, positions, rope)
+    kl, vl = kfull[layer_idx], vfull[layer_idx]          # (B, Sl, Hkv, hd)
+    Sl = kl.shape[1]
+    off = 0 if act is None else tp.layout().model_rank * Sl
+    local = start - off
+    rows = ((local.clamp(0, Sl - 1)[:, None]
+             + torch.arange(min(T, Sl), device=h.device)[None, :]) % Sl)
+    src = rows - local[:, None]                          # its chunk row
+    live = ((src >= 0) & (src < qlen[:, None]))[:, :, None, None]
+    batch_ix = torch.arange(B, device=h.device)[:, None]
+    src = src.clamp(0, T - 1)
+    kl[batch_ix, rows] = torch.where(live, k[batch_ix, src].to(kl.dtype),
                                      kl[batch_ix, rows])
-    vl[batch_ix, rows] = torch.where(live, v[:, :W].to(vl.dtype),
+    vl[batch_ix, rows] = torch.where(live, v[batch_ix, src].to(vl.dtype),
                                      vl[batch_ix, rows])
-    out = prefill_chunk_attention(cfg, q, kl, vl, start, qlen)
-    return out @ p.wo
+    if act is None:
+        out = prefill_chunk_attention(cfg, q, kl, vl, start, qlen)
+    else:
+        out = _merged(ragged_prefill_attention, q, kl, vl, local,
+                      qlen).reshape(B, T, -1).to(h.dtype)
+    return _row_out(cfg, p, out, False, tp.sp(act))
 
 
 def attention_cross_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -390,7 +403,8 @@ def attention_cross_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         q = _rms_head(q, p.q_norm)
     shape = (tp.call_shape(B, 1)[0], cfg.n_image_tokens, *k_cache.shape[2:])
     if tp.model_sharded(("batch", "seq_mp", None, None), shape, 1):
-        out = _merged_decode(q, k_cache, v_cache, pos).reshape(B, 1, -1)
+        out = _merged(ragged_decode_attention, q.reshape(B, -1, cfg.hd),
+                      k_cache, v_cache, pos).reshape(B, 1, -1)
     else:
         out = decode_attention(cfg, q, k_cache, v_cache, pos)
     return _row_out(cfg, p, out.to(h.dtype), False, tp.sp(act))
@@ -679,16 +693,19 @@ def _row_out(cfg, p, out: torch.Tensor, heads_local: bool, sp: bool):
     return tp.model_block(y) if sp else y
 
 
-def _merged_decode(q, kl, vl, local_pos):
-    """``ragged_decode`` of q (B, 1, Hq, hd) over the rank's cache rows at
-    ``local_pos``, merged over ``model`` by each head's log-sum-exp: out =
-    sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M), M the heads' max."""
-    B, _, Hq, hd = q.shape
-    out, lse = ragged_decode_attention(q.reshape(B, Hq, hd), kl, vl,
-                                       local_pos.to(torch.int32), lse=True)
+def _merged(kernel, q, kl, vl, local, *args):
+    """``kernel`` (``ragged_decode_attention`` on q (B, Hq, hd) or
+    ``ragged_prefill_attention`` on q (B, T, Hq, hd)) over the rank's cache
+    rows at the positions or starts ``local``, merged over ``model`` by
+    each row's log-sum-exp: out = sum_r e^(lse_r - M) out_r / sum_r
+    e^(lse_r - M), M the rows' max.  A row that no rank's rows reach (a
+    padded row: -inf on every rank) gives 0, not 0 / 0."""
+    out, lse = kernel(q, kl, vl, local.to(torch.int32), *args, lse=True)
     m = tp.reduce_max(lse, "model")
+    m = torch.where(torch.isfinite(m), m, 0.0)
     w = torch.exp(lse - m)                       # 0 where no row is live
-    both = tp.reduce(torch.cat([(out * w[..., None]).reshape(B, -1), w],
-                               -1), "model")
-    num, den = both[:, :Hq * hd], both[:, Hq * hd:]
-    return num.reshape(B, Hq, hd) / den[..., None]
+    n = out.shape[-2] * out.shape[-1]
+    both = tp.reduce(torch.cat([(out * w[..., None]).flatten(-2), w], -1),
+                     "model")
+    num, den = both[..., :n], both[..., n:]
+    return num.reshape(out.shape) / torch.where(den > 0, den, 1.0)[..., None]

@@ -35,6 +35,7 @@ the engine prefills a prompt whole.
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -99,7 +100,10 @@ def ssm_layer_init(cfg: ModelConfig, gen: torch.Generator, device) -> SSM:
 # ---------------------------------------------------------------------------
 
 def _split_proj(cfg: ModelConfig, p: SSM, x: torch.Tensor):
-    di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    """``x @ in_proj`` split into (z, xBC, dt); ``p`` may hold a block of
+    the heads (:func:`_head_block`), whose widths its ``A_log`` gives."""
+    nh, ds = p.A_log.shape[0], cfg.ssm_state
+    di = nh * cfg.ssm_head_dim
     zxbcdt = x.to(torch_dtype(cfg.compute_dtype)) @ p.in_proj
     return (zxbcdt[..., :di], zxbcdt[..., di:di + di + 2 * ds],
             zxbcdt[..., -nh:])
@@ -169,20 +173,29 @@ def _ssd_chunked(cfg: ModelConfig, xh, dt, A, Bmat, Cmat):
     return y, h
 
 
-def _gated_norm(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def _gated_norm(cfg: ModelConfig, p: SSM, y: torch.Tensor, z: torch.Tensor,
+                sum_sq=None) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over all of ``d_inner``: ``sum_sq`` sums
+    a block of heads' squares over the ranks that hold the others."""
     y = y.float() * F.silu(z.float())
-    ms = y.square().mean(-1, keepdim=True)
-    return (y * torch.rsqrt(ms + 1e-6) * p.norm).to(z.dtype)
+    ss = y.square().sum(-1, keepdim=True)
+    if sum_sq is not None:
+        ss = sum_sq(ss)
+    return (y * torch.rsqrt(ss / cfg.d_inner + 1e-6) * p.norm).to(z.dtype)
 
 
-def ssm_layer_full(cfg: ModelConfig, p: SSM, x: torch.Tensor):
+def ssm_layer_full(cfg: ModelConfig, p: SSM, x: torch.Tensor, sum_sq=None):
     """Full-sequence SSD layer from a zero state.  Returns (out,
     (ssm_state, conv_state)): the conv state is the last ``K-1`` rows of
     the pre-conv ``xBC``, fewer for a shorter prompt.  (The reference
     returns it when asked, recomputing the in_proj for it in ``_raw_xbc``;
-    here it is the slice of the product already taken.)"""
-    di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    here it is the slice of the product already taken.)  ``p`` may hold a
+    block of the heads (:func:`_head_block`): then the state, the conv
+    state's x channels and ``out`` (partial sums) are the block's, and
+    ``sum_sq`` completes the gated norm (:func:`_gated_norm`)."""
+    ds, hp = cfg.ssm_state, cfg.ssm_head_dim
+    nh = p.A_log.shape[0]
+    di = nh * hp
     z, raw, dt_raw = _split_proj(cfg, p, x)
     xBC = _conv_full(cfg, p, raw)
     xs = xBC[..., :di].reshape(*x.shape[:2], nh, hp)
@@ -192,7 +205,7 @@ def ssm_layer_full(cfg: ModelConfig, p: SSM, x: torch.Tensor):
     A = -torch.exp(p.A_log)
     y, hT = _ssd_chunked(cfg, xs, dt, A, Bmat, Cmat)
     y = y + xs.float() * p.D[None, None, :, None]
-    y = _gated_norm(p, y.reshape(*x.shape[:2], di), z)
+    y = _gated_norm(cfg, p, y.reshape(*x.shape[:2], di), z, sum_sq)
     out = y.to(x.dtype) @ p.out_proj.to(x.dtype)
     return out, (hT, raw[:, -(cfg.ssm_conv - 1):, :])
 
@@ -220,7 +233,7 @@ def ssm_layer_step(cfg: ModelConfig, p: SSM, x: torch.Tensor,
          + torch.einsum("bs,bhp->bhps", Bmat, xdt))
     y = torch.einsum("bs,bhps->bhp", Cmat, h)
     y = y + xs.float() * p.D[None, :, None]
-    y = _gated_norm(p, y.reshape(-1, 1, di), z)
+    y = _gated_norm(cfg, p, y.reshape(-1, 1, di), z)
     out = y.to(x.dtype) @ p.out_proj.to(x.dtype)
     return out, (h, new_conv)
 
@@ -239,19 +252,96 @@ def _conv_sharded(cfg: ModelConfig) -> bool:
     return tp.model_sharded(("ff",), (cfg.d_inner + 2 * cfg.ssm_state,), 0)
 
 
-def ssm_full(cfg: ModelConfig, p: SSM, h: torch.Tensor):
-    """:func:`ssm_layer_full` on a residual; under rules computed whole on
-    every rank of ``model`` (the SSD over ``heads`` is not sharded yet):
-    the weights gathered, the sequence gathered where it is sequence-
-    parallel, the output cut back to the rank's block and the conv state
-    to its channels."""
+def _rank_heads(cfg: ModelConfig, B: int, S: int):
+    """``(first, n)``: the block of SSD heads this rank computes where the
+    reference's constraint of the SSD's tensors to ``heads`` divides
+    ``model``; ``None`` outside a ruled call and where it does not divide
+    (the fallback the rules record)."""
+    if tp.activation() is None:
+        return None
+    nh, hp, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    cl = min(cfg.ssm_chunk, S)
+    B = tp.call_shape(B, S)[0]
+    tp.note(("batch", None, None, "heads"), (B, -(-S // cl), cl, nh))
+    tp.note(("batch", "heads", None, None), (B, nh, hp, ds))
+    if not tp.model_sharded(("batch", None, None, "heads", None),
+                            (B, -(-S // cl), cl, nh, hp), 3):
+        return None
+    lay = tp.layout()
+    n = nh // lay.model
+    return lay.model_rank * n, n
+
+
+def _rows(w, names, shape, dim: int, lo: int, n: int):
+    """Rows ``lo .. lo + n`` of dim ``dim`` of a parameter: its local block
+    where that is exactly them (``dim`` on ``model`` alone), else cut from
+    the gathered whole."""
+    if tp.layout().spec(names, shape)[dim] == ("model",):
+        return tp.full_param(w, names, shape)
+    return tp.full(w, names, shape).narrow(dim, lo, n)
+
+
+def _head_block(cfg: ModelConfig, p: SSM, lo: int, n: int):
+    """The weights of SSD heads ``lo .. lo + n`` in :class:`SSM`'s layout:
+    ``in_proj``'s columns of their z, x and dt with B and C whole
+    (``n_groups`` is 1), the conv's channels of their x with B's and C's,
+    their ``dt_bias``, ``A_log``, ``D``, ``norm`` channels and
+    ``out_proj`` rows."""
+    di, ds, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    sh = _ssm_shapes(cfg)
+    a, b = lo * hp, (lo + n) * hp
+    whole = tp.full_module(p, {k: SSM_AXES[k] for k in
+                               ("in_proj", "conv_w", "conv_b", "dt_bias",
+                                "A_log", "D")}, sh)
+
+    def cols(w, spans):
+        return torch.cat([w[..., i:j] for i, j in spans], -1)
+    xbc = ((a, b), (di, di + 2 * ds))
+    return types.SimpleNamespace(
+        in_proj=cols(whole.in_proj, ((a, b), (di + a, di + b),
+                                     (2 * di, 2 * di + 2 * ds),
+                                     (2 * di + 2 * ds + lo,
+                                      2 * di + 2 * ds + lo + n))),
+        conv_w=cols(whole.conv_w, xbc), conv_b=cols(whole.conv_b, xbc),
+        dt_bias=whole.dt_bias[lo:lo + n], A_log=whole.A_log[lo:lo + n],
+        D=whole.D[lo:lo + n],
+        norm=_rows(p.norm, SSM_AXES["norm"], sh["norm"], 0, a, b - a),
+        out_proj=_rows(p.out_proj, SSM_AXES["out_proj"], sh["out_proj"], 0,
+                       a, b - a))
+
+
+def ssm_full(cfg: ModelConfig, p: SSM, h: torch.Tensor, state: bool = True):
+    """:func:`ssm_layer_full` on a residual.  Under rules the sequence is
+    gathered where it is sequence-parallel, and where ``heads`` divides
+    ``model`` (:func:`_rank_heads`) each rank runs the SSD on its block of
+    heads (:func:`_head_block`): the gated norm's squares summed over
+    ``model``, ``out_proj`` row-parallel onto the residual's layout, the
+    final state gathered whole (the reference's cache keeps it replicated
+    over ``model``).  Where it does not divide, the layer computes whole on
+    every rank (recorded).  The conv state is the rank's ``"ff"`` block of
+    the channels.  Without ``state`` (a training forward) the state is not
+    gathered, and ``None`` comes back in its place."""
     sp = tp.sp(tp.activation())
-    tp.replicated("ssm")
-    out, (hT, conv) = ssm_layer_full(
-        cfg, tp.full_module(p, SSM_AXES, _ssm_shapes(cfg)),
-        tp.seq_full(h, sp))
-    if sp:
-        out = tp.model_block(out)
+    x = tp.seq_full(h, sp)
+    heads = _rank_heads(cfg, *x.shape[:2])
+    if heads is None:
+        tp.replicated("ssm")
+        out, (hT, conv) = ssm_layer_full(
+            cfg, tp.full_module(p, SSM_AXES, _ssm_shapes(cfg)), x)
+        out = tp.model_block(out) if sp else out
+    else:
+        out, (hT, conv) = ssm_layer_full(
+            cfg, _head_block(cfg, p, *heads), x,
+            lambda ss: tp.reduce(ss, "model"))
+        out = tp.seq_out(out, sp)
+        if state:
+            # the block's x channels of the conv input gathered whole
+            xc = heads[1] * cfg.ssm_head_dim
+            conv = torch.cat([tp.gather(conv[..., :xc].contiguous(), -1,
+                                        "model"), conv[..., xc:]], -1)
+            hT = tp.gather(hT, 1, "model")
+    if not state:
+        return out, None
     if _conv_sharded(cfg):
         conv = tp.model_block(conv, -1)
     return out, (hT, conv)
@@ -260,9 +350,9 @@ def ssm_full(cfg: ModelConfig, p: SSM, h: torch.Tensor):
 def ssm_step(cfg: ModelConfig, p: SSM, h: torch.Tensor,
              ssm_state: torch.Tensor, conv_state: torch.Tensor):
     """:func:`ssm_layer_step`; under rules whole on every rank of
-    ``model``, the conv state's channels gathered and cut back."""
+    ``model``, as the reference's step has no ``heads`` constraint: the
+    conv state's channels gathered and cut back."""
     sp = tp.sp(tp.activation())
-    tp.replicated("ssm")
     shard = _conv_sharded(cfg)
     if shard:
         conv_state = tp.gather(conv_state, -1, "model")
@@ -302,7 +392,8 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer(cfg: ModelConfig, lp: SSMLayer, x: torch.Tensor) -> torch.Tensor:
-    return x + ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm))[0]
+    return x + ssm_full(cfg, lp.ssm, L.apply_norm(lp.ln, x, cfg.norm),
+                        state=False)[0]
 
 
 def forward(cfg: ModelConfig, p: Transformer, batch: dict) -> torch.Tensor:

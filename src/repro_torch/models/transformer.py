@@ -217,8 +217,9 @@ def prefill_chunk(cfg: ModelConfig, p: Transformer, tokens, cache: dict,
     ``qlen``: (B,) live tokens.  Returns (logits at each slot's last live
     token ``max(qlen - 1, 0)``, (B, 1, V); cache) — meaningful once the
     chunk holding the prompt's final token has been consumed.  Under
-    rules only on a mesh whose ``model`` axis is 1 (the caches are the
-    rank's batch rows)."""
+    rules ``tokens``, ``start`` and ``qlen`` are the whole batch's, the
+    caches the rank's block (its batch rows, its rows of ``Smax`` on
+    ``model``: ``cache_logical_axes``), and the logits whole."""
     B, T = tokens.shape
     with tp.entry(B, T) as act:
         x = L.embed_tokens(cfg, p.tok, tokens)

@@ -26,10 +26,14 @@ def ef_init(params) -> dict:
                                           device=p.device), params)
 
 
-def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize(x: torch.Tensor, absmax=None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(int8 payload, float32 scale): ``x / scale`` rounded half to even
-    and clipped to +-127, ``scale = max|x| / 127 + 1e-12``."""
-    scale = x.abs().max() / 127.0 + 1e-12
+    and clipped to +-127, ``scale = max|x| / 127 + 1e-12``.  ``absmax(x)``
+    gives ``max|x|`` over the whole tensor where ``x`` is one rank's block
+    of it (by default ``x``'s own)."""
+    m = x.abs().max() if absmax is None else absmax(x)
+    scale = m / 127.0 + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -38,15 +42,20 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def ef_compress_grads(grads, residual):
+def ef_compress_grads(grads, residual, absmax=None):
     """int8 quantization with error feedback.  Returns (the compressed then
-    decompressed gradients, the new residual)."""
-    def one(g, r):
+    decompressed gradients, the new residual).  ``absmax``: for gradients
+    that are each rank's blocks of the leaves, a tree of the leaves'
+    :func:`quantize` ``absmax`` functions (``train.step`` all-reduces the
+    block's max over the mesh axes the leaf is sharded on), so that every
+    block is scaled by its whole leaf's max, as the reference's is."""
+    def one(g, r, f=None):
         x = g.float() + r
-        deq = dequantize(*quantize(x))
+        deq = dequantize(*quantize(x, f))
         return deq.to(g.dtype), x - deq
 
-    out = tree_map(one, grads, residual)
+    out = tree_map(one, grads, residual, *(() if absmax is None
+                                           else (absmax,)))
     return tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out)
 
 

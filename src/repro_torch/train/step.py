@@ -83,6 +83,21 @@ def local_train_state(model: Model, state: TrainState) -> TrainState:
     return convert.local_tree(model.cfg, state, specs)
 
 
+def whole_train_state(model: Model, state: TrainState) -> TrainState:
+    """The global training state from the rank's blocks under the active
+    rules (every rank of the mesh calls it): each leaf gathered over the
+    mesh axes its :func:`train_state_specs` entry shards it on.  Without
+    rules, ``state`` itself."""
+    if tp.layout() is None:
+        return state
+    shapes = convert.param_shapes(model.cfg)
+    tree = {"params": shapes, "opt": {"m": shapes, "v": shapes, "step": ()}}
+    if "ef" in state:
+        tree["ef"] = shapes
+    return tree_map(lambda names, shape, t: tp.full(t, names, shape),
+                    train_state_specs(model, "ef" in state), tree, state)
+
+
 def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
     """The mean loss over the batch; under rules over the rank's rows (the
     logits ``forward`` gives)."""
@@ -100,25 +115,55 @@ def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
     return cross_entropy(logits, labels)
 
 
-def _sharded_grads(cfg: ModelConfig, grads, lay):
+def _synced_grads(cfg: ModelConfig, grads, lay):
     """Each gradient summed over the mesh axes its parameter is replicated
-    on, and the global gradient norm: every rank's squared sums, a leaf's
-    divided by its number of replicas, summed over the mesh."""
+    on."""
     specs, shapes = convert.param_specs(cfg), convert.param_shapes(cfg)
 
     def sync(names, shape, g):
         axes = tp.replicated_axes(names, shape, lay)
         return tp.reduce(g, axes) if axes else g
-    grads = tree_map(sync, specs, shapes, grads)
+    return tree_map(sync, specs, shapes, grads)
+
+
+def _global_norm(cfg: ModelConfig, grads, lay) -> torch.Tensor:
+    """The global norm of the rank's gradient blocks: every rank's squared
+    sums, a leaf's divided by its number of replicas, summed over the
+    mesh."""
+    specs, shapes = convert.param_specs(cfg), convert.param_shapes(cfg)
     sq = tree_map(lambda names, shape, g: g.float().square().sum()
                   / _replicas(names, shape, lay), specs, shapes, grads)
-    total = tp.reduce(sum(tree_leaves(sq)), tuple(lay.sizes))
-    return grads, torch.sqrt(total)
+    return torch.sqrt(tp.reduce(sum(tree_leaves(sq)), tuple(lay.sizes)))
 
 
 def _replicas(names, shape, lay) -> int:
     return math.prod(lay.size(a)
                      for a in tp.replicated_axes(names, shape, lay))
+
+
+def _leaf_absmax(cfg: ModelConfig, lay):
+    """Each leaf's ``max|x|`` over the whole leaf from the rank's block:
+    the block's max all-reduced over the mesh axes the leaf is sharded on
+    (compression's :func:`~repro_torch.optim.compression.quantize`)."""
+    def one(names, shape):
+        axes = tuple(a for ax in lay.spec(names, shape) for a in ax)
+        return lambda x: tp.reduce_max(x.abs().max(), axes)
+    return tree_map(one, convert.param_specs(cfg), convert.param_shapes(cfg))
+
+
+def _microbatches(batch: dict, mb: int):
+    """The batch's ``mb`` parts along its rows.  Under rules each rank
+    splits its own rows: part ``i`` holds every rank's ``i``-th part of
+    its rows, so a rank's rows of part ``i`` (``tp.batch_block``) are rows
+    it holds.  Without rules, part ``i`` is rows ``i * B / mb ..``, the
+    reference's."""
+    rows = next(v.shape[0] for v in batch.values() if v.dim() >= 1)
+    lay = tp.layout()
+    n = 1 if lay is None else lay.count(tp.batch_axes(rows // mb, lay))
+    for i in range(mb):
+        yield {k: v.reshape(n, mb, -1, *v.shape[1:])[:, i].reshape(
+            -1, *v.shape[1:]) if v.dim() >= 1 else v
+            for k, v in batch.items()}
 
 
 class _Compute:
@@ -165,7 +210,6 @@ class TrainStep:
         self.microbatches = microbatches
         self.compress_dcn = compress_dcn
         self._compute = _Compute(model)
-        self._grad_norm = None
 
     @property
     def module(self):
@@ -174,7 +218,9 @@ class TrainStep:
     def value_and_grad(self, params, batch):
         """(loss, gradients): the loss a float32 0-d tensor, the gradients
         the reference's tree in float32 (zeros for a parameter the loss
-        does not reach, as the reference's autodiff gives)."""
+        does not reach, as the reference's autodiff gives).  Under rules
+        the loss is the mesh's and the gradients the rank's blocks, each
+        summed over the ranks it is replicated on."""
         cfg = self.model.cfg
         module = self._compute.load(params)
         for p in module.parameters():
@@ -191,9 +237,8 @@ class TrainStep:
             cfg, module, lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device)
             if p.grad is None else p.grad.float())
-        self._grad_norm = None
         if lay is not None:
-            grads, self._grad_norm = _sharded_grads(cfg, grads, lay)
+            grads = _synced_grads(cfg, grads, lay)
             loss = tp.reduce(loss.detach(), tuple(lay.sizes))
         return loss.detach(), grads
 
@@ -203,25 +248,24 @@ class TrainStep:
         if mb <= 1:
             loss, grads = self.value_and_grad(params, batch)
         else:
-            # split the batch's leading dim into microbatches; sum in f32
+            # the batch's rows in microbatches; gradients summed in f32
             gsum = loss_sum = None
-            for i in range(mb):
-                part = {k: v.reshape(mb, -1, *v.shape[1:])[i]
-                        if v.dim() >= 1 else v for k, v in batch.items()}
+            for part in _microbatches(batch, mb):
                 loss, g = self.value_and_grad(params, part)
                 gsum = g if gsum is None else tree_map(torch.add, gsum, g)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             grads = tree_map(lambda g: g / mb, gsum)
             loss = loss_sum / mb
         new_state = dict(state)
+        lay = tp.layout()
+        cfg = self.model.cfg
         if self.compress_dcn:
-            grads, new_state["ef"] = ef_compress_grads(grads, state["ef"])
-        if tp.layout() is not None and (mb > 1 or self.compress_dcn):
-            raise NotImplementedError("microbatches and compress_dcn under "
-                                      "rules on a mesh")
+            grads, new_state["ef"] = ef_compress_grads(
+                grads, state["ef"],
+                None if lay is None else _leaf_absmax(cfg, lay))
         new_params, new_opt, metrics = adamw_update(
             self.opt_cfg, grads, state["opt"], params,
-            grad_norm=self._grad_norm)
+            grad_norm=None if lay is None else _global_norm(cfg, grads, lay))
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss)

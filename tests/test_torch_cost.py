@@ -10,7 +10,9 @@ counterpart: ``tests/test_hlo_cost.py``, ``tests/test_dryrun.py`` and
   reduction on a (2, 4) fake mesh, and a full-mesh reduction over (pod 2,
   data 2, model 2) classified cross-pod;
 * the skip rules and the 31 runnable + 9 skipped cells;
-* a (2, 2) tiny-mesh train cell with FLOPs, bytes and peak memory;
+* a (2, 2) tiny-mesh train cell with FLOPs, bytes and peak memory, and
+  at ``microbatches=2``; reduced mamba2's prefill FLOPs a device falling
+  with ``model`` as its SSD splits over the heads;
 * ``model_flops`` and ``analytic_decode_bytes`` equal to the reference's
   for every architecture and shape;
 * the counter's FLOPs on reduced qwen2 with heads widened to 64 (d_model
@@ -178,6 +180,49 @@ def test_tiny_mesh_train_cell():
     assert coll == {"all-gather": 44, "reduce-scatter": 28,
                     "all-reduce": 13, "all-to-all": 2}
     assert prefill == {"all-gather": 27, "reduce-scatter": 5}
+
+
+def test_ssd_over_heads_and_microbatches():
+    """Reduced mamba2 (8 SSD heads) traced as rank 0 of fake (1, 1), (1,
+    2) and (1, 4) meshes: its prefill's FLOPs a device fall with
+    ``model`` and ``ssm`` is not recorded as computed whole; at
+    ``d_model`` 48 (6 heads) on 4 ranks it is.  The tiny qwen2 train cell
+    at ``microbatches=2``: twice the kernel calls (a forward and a
+    recompute a layer per part) and FLOPs within 1 % of one part."""
+    out = _port("""
+    import dataclasses, json, torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import fake_world, trace
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    tokens = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    base = get_config("mamba2-130m", reduced=True)
+    for label, cfg, m in (("8h", base, 1), ("8h", base, 2), ("8h", base, 4),
+                          ("6h", dataclasses.replace(base, d_model=48), 4)):
+        fake_world(m)
+        mesh = make_mesh((1, m), ("data", "model"), "cpu")
+        c, rules = trace(cfg, "prefill", {"tokens": tokens}, mesh)
+        res[f"{label}@{m}"] = [c.totals.flops,
+                               sorted(rules.cache.get("replicated", ()))]
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", reduced=True),
+                              n_layers=2)
+    fake_world(4)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    meta = torch.empty((4, 32), dtype=torch.int32, device="meta")
+    for mb in (1, 2):
+        c, _ = trace(cfg, "train", {"tokens": meta, "labels": meta}, mesh,
+                     microbatches=mb)
+        res[f"train{mb}"] = [c.totals.flops, c.calls]
+    print(json.dumps(res))
+    """)
+    res = json.loads(out.strip().splitlines()[-1])
+    f1, f2, f4 = (res[f"8h@{m}"][0] for m in (1, 2, 4))
+    assert f1 > f2 > f4
+    assert all("ssm" not in res[f"8h@{m}"][1] for m in (1, 2, 4))
+    assert "ssm" in res["6h@4"][1]
+    (t1, c1), (t2, c2) = res["train1"], res["train2"]
+    assert c2 == {k: 2 * n for k, n in c1.items()}
+    assert t2 == pytest.approx(t1, rel=0.01)
 
 
 @pytest.mark.parametrize("shape", tuple(SHAPES))
