@@ -2,12 +2,12 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, is right, and serves.
 
-    python3 chip_smoke.py [--seed N] [--only flash_bwd|mesh]
+    python3 chip_smoke.py [--seed N] [--only flash_bwd|mesh|graph]
 
 (``--only flash_bwd`` runs the device and build phases and the flash
 backward's cases alone, with a profile of its kernels; ``--only mesh``
-the device, build, serve and mesh phases; neither prints a result
-line.)
+the device, build, serve and mesh phases; ``--only graph`` the device,
+build, serve and audit phases; none prints a result line.)
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -69,12 +69,18 @@ Phases, in order; any failure exits non-zero before the last line:
              gradient);
 5. serve   — qwen2-0.5b at full width, random weights from the seed,
              through ``ServeEngine``: 16 requests with prompts of 64-1024
-             tokens and 64 new tokens each, over 8 slots in chunks of 4;
+             tokens and 64 new tokens each, over 8 slots in chunks of 4,
+             the decode on its CUDA graph (``models/graphs.py``: exactly
+             one cell built for the engine, its capture time printed);
              every request must finish with 64 in-vocabulary tokens, the
              decode and whole-prompt prefill kernels must have launched
-             during the run, and a session exported mid-decode and
-             imported into a second engine must continue the same token
-             stream as the unmigrated request;
+             exactly as often as the run's prefills and steps say; the
+             same prompts through an engine on the eager loop the cell
+             captures give the same 16 streams and launches (tok/s, TPOT,
+             TTFT and a profiled window's busy and idle shares of both);
+             and a session exported mid-decode and imported into a second
+             engine must continue the same token stream as the unmigrated
+             request;
 6. chunked — the same 16 prompts through a second engine that prefills in
              chunks of 256 tokens (the ``ragged_prefill`` kernel), 16 new
              tokens each: every request finishes in vocabulary, and the
@@ -231,11 +237,18 @@ Phases, in order; any failure exits non-zero before the last line:
              narrowest the attention kernels take; the CPU tests run the
              same configs): every request done in vocabulary, the
              attention kernels launched, losses finite.
+The serving families (10-14) each run their prompts on the graph and
+again on the eager loop: the same streams and launches, one cell built.
+The fleet and region replicas build their decode cells before traffic.
 Between the region and the MoE phases, the audit (20): the serve phase's
-model's ``decode_fused`` (B 8, k 4) and ``prefill_chunk`` (T 256) under
+model's ``decode_fused`` (B 8, k 4: the call building its graph, then a
+replay) and ``prefill_chunk`` (T 256) under
 ``torch.cuda.set_sync_debug_mode("error")``, every cache tensor keeping
 its ``data_ptr`` and no op returning float64, a decode that reads a
-token on the host caught, then ``python -m repro_torch.analysis`` (lint,
+token on the host caught; the retrace budget (one graph per (batch,
+chunk) cell for the five families' widened reduced configs over (2, 3)
+x (1, 4) and for the serve model at B 8, k 4; a decode that builds a
+cell every call caught); then ``python -m repro_torch.analysis`` (lint,
 contracts and the audit of all five families on the card) exiting 0.
 After the audit, the mesh phase (21): a one-rank NCCL process group
 (``repro_torch.distributed.ranks.process_group``, card 0 bound; a failure
@@ -1456,6 +1469,33 @@ def phase_train(torch, seed, card):
 # 5. serve
 # ---------------------------------------------------------------------------
 
+def _cells_built(model) -> int:
+    """The decode cells ``model.decode_fused`` has built (the eager loop
+    builds none)."""
+    return len(_capture_ms(model))
+
+
+def _capture_ms(model) -> list:
+    """Each decode cell's capture time on the host, in build order."""
+    return list(getattr(model.decode_fused, "capture_ms", ()))
+
+
+def _passes(steps: int, built: int) -> int:
+    """Decode passes over the engines' caches: each decode step, and each
+    cell's build, which an engine runs as it allocates its batch cache
+    (one eager decode of the cache, then the capture, which launches
+    nothing).  Each pass launches ``ragged_decode`` once a token and
+    attention layer."""
+    return steps + built
+
+
+def _eager(model):
+    """``model`` with ``decode_fused`` the eager k-step loop that its
+    cells capture: what the graph path is held against."""
+    import dataclasses
+    return dataclasses.replace(model, decode_fused=model.decode_fused.eager)
+
+
 def _solo_stream(torch, np, model, params, prompt, max_new, export_after):
     """One request alone on an 8-slot engine, to the end; with
     ``export_after`` set, exported after that many steps and finished on a
@@ -1502,63 +1542,101 @@ def phase_serve(torch, seed, card):
 
     rng = np.random.default_rng(seed)
     max_new, n_req = 64, 16
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
-                                               int(rng.integers(64, 1025))),
-                    max_new=max_new) for i in range(n_req)]
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(64, 1025)))
+               for _ in range(n_req)]
 
     # warm-up request (not timed): cuBLAS handles, allocator
     warm = ServeEngine(model, params, max_batch=8, max_seq=2048,
                        decode_chunk=4)
-    warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:64], max_new=8))
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=8))
     warm.run_until_drained()
     del warm                  # its idle batch cache must not count in the peak
 
-    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
-                         decode_chunk=4)
-    lat = []
-    engine.on_step_latency = lat.append
-    for r in reqs:
-        engine.submit(r)
-    rd.launches = fa.launches = 0       # count the main path's run only
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
+    def run(m, how):
+        """The 16 prompts through a fresh engine over ``m``: checks,
+        prints, and (requests, per-token latencies, launches, capture ms
+        of the cells built)."""
+        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(prompts)]
+        engine = ServeEngine(m, params, max_batch=8, max_seq=2048,
+                             decode_chunk=4)
+        lat = []
+        engine.on_step_latency = lat.append
+        for r in reqs:
+            engine.submit(r)
+        built0 = _cells_built(m)
+        rd.launches = fa.launches = 0       # count the main path's run only
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"ragged_decode": rd.launches,
+                    "flash_attention": fa.launches}
+        captures = _capture_ms(m)[built0:]
 
-    check(all(r.done for r in reqs), "not every request finished")
-    check(all(len(r.out_tokens) == max_new for r in reqs),
-          f"token counts {[len(r.out_tokens) for r in reqs]} != {max_new}")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          "a token is outside [0, vocab)")
-    check(engine.stats()["requests_served"] == n_req, "served count")
-    check(launches["flash_attention"] == n_req * cfg.n_layers,
-          f"flash_attention launches {launches['flash_attention']} != "
-          f"{n_req} prefills x {cfg.n_layers} layers")
-    steps = len(lat)
-    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
-          f"ragged_decode launches {launches['ragged_decode']} != {steps} "
-          f"steps x 4 tokens x {cfg.n_layers} layers")
+        check(all(r.done for r in reqs), "not every request finished")
+        check(all(len(r.out_tokens) == max_new for r in reqs),
+              f"token counts {[len(r.out_tokens) for r in reqs]} != "
+              f"{max_new}")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+              "a token is outside [0, vocab)")
+        check(engine.stats()["requests_served"] == n_req, "served count")
+        check(launches["flash_attention"] == n_req * cfg.n_layers,
+              f"{how}: flash_attention launches "
+              f"{launches['flash_attention']} != {n_req} prefills x "
+              f"{cfg.n_layers} layers")
+        steps = len(lat)
+        passes = _passes(steps, len(captures))
+        check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
+              f"{how}: ragged_decode launches {launches['ragged_decode']} "
+              f"!= {passes} decode passes ({steps} steps, "
+              f"{len(captures)} cell builds) x 4 tokens x {cfg.n_layers} "
+              f"layers")
 
-    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
-    dec_time = sum(lat) * 4
-    ttft = sorted(r.t_first - r.t_admit for r in reqs)
-    ptt_updates = engine.scheduler.ptt.updates
-    print(f"[serve] {n_req} requests x {max_new} tokens, prompts "
-          f"{min(len(r.prompt) for r in reqs)}-"
-          f"{max(len(r.prompt) for r in reqs)}: wall {wall:.3f} s, "
-          f"{steps} decode steps")
-    print(f"[serve] decode {dec_tokens / dec_time:.1f} tok/s, p50 per-token "
-          f"step latency {1e3 * float(np.median(lat)):.3f} ms, p50 prefill "
-          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms, ptt.updates {ptt_updates} "
-          f"({card})")
-    print(f"[serve] launches in the run: {launches}")
-    print(f"[serve] peak device memory {peak} bytes ({card})")
+        dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+        dec_time = sum(lat) * 4
+        ttft = sorted(r.t_first - r.t_admit for r in reqs)
+        ptt_updates = engine.scheduler.ptt.updates
+        print(f"[serve] {how}: {n_req} requests x {max_new} tokens, prompts "
+              f"{min(len(r.prompt) for r in reqs)}-"
+              f"{max(len(r.prompt) for r in reqs)}: wall {wall:.3f} s, "
+              f"{steps} decode steps")
+        print(f"[serve] {how}: decode {dec_tokens / dec_time:.1f} tok/s, p50 "
+              f"per-token step latency {1e3 * float(np.median(lat)):.3f} ms "
+              f"(max {1e3 * max(lat):.3f}), p50 prefill "
+              f"{1e3 * ttft[len(ttft) // 2]:.3f} ms, ptt.updates "
+              f"{ptt_updates} ({card})")
+        print(f"[serve] {how}: launches in the run: {launches}; decode cells "
+              f"built {len(captures)}, capture ms "
+              f"{[round(c, 3) for c in captures]}")
+        print(f"[serve] {how}: peak device memory {peak} bytes ({card})")
+        return reqs, lat, launches, captures
 
-    phase_profile(torch, np, model, params, reqs, card)
+    # the main path: decode_fused as one CUDA graph per (batch, chunk) cell
+    # and cache; then the eager loop the cells capture, on the same prompts
+    reqs, _, launches, captures = run(model, "graph")
+    check(len(captures) == 1, f"the engine built {len(captures)} decode "
+          f"cells, not one (B 8, k 4)")
+    eager = _eager(model)
+    ereqs, _, elaunches, ecaptures = run(eager, "eager loop")
+    check(not ecaptures, "the eager loop built a cell")
+    build = {"ragged_decode": 4 * cfg.n_layers, "flash_attention": 0}
+    check(all(launches[k] == elaunches[k] + build[k] for k in build),
+          f"launches: graph {launches}, eager loop {elaunches} and the "
+          f"cell's build {build}")
+    for r, e in zip(reqs, ereqs):
+        check(r.out_tokens == e.out_tokens, f"request {r.rid}: the graph's "
+              f"stream differs from the eager loop's:\n{r.out_tokens}\n"
+              f"{e.out_tokens}")
+    print(f"[serve] graph against eager loop: all {len(reqs)} streams "
+          f"identical, launches equal but for the cell's build {build}")
+
+    phase_profile(torch, np, model, params, reqs, card, "graph")
+    phase_profile(torch, np, eager, params, reqs, card, "eager loop",
+                  prefill=False)
 
     # a session exported mid-decode continues the same stream elsewhere
     prompt = min((r.prompt for r in reqs), key=len)
@@ -1652,6 +1730,7 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     engine.on_prefill_latency = chunk_lat.append
     for r in reqs:
         engine.submit(r)
+    built0 = _cells_built(model)
     rd.launches = fa.launches = rp.launches = 0  # count this run only
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1680,9 +1759,11 @@ def phase_chunked(torch, card, model, params, whole_reqs):
           f"flash_attention launched {launches['flash_attention']} times "
           f"in the chunked run")
     steps = len(lat)
-    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
-          f"ragged_decode launches {launches['ragged_decode']} != {steps} "
-          f"steps x 4 tokens x {cfg.n_layers} layers")
+    passes = _passes(steps, _cells_built(model) - built0)
+    check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
+          f"ragged_decode launches {launches['ragged_decode']} != {passes} "
+          f"decode passes ({steps} steps and the cell's build) x 4 tokens "
+          f"x {cfg.n_layers} layers")
     check(engine.scheduler.ptt.updates == n_chunks + steps,
           f"ptt.updates {engine.scheduler.ptt.updates} != {n_chunks} "
           f"chunks + {steps} decode steps")
@@ -1891,19 +1972,22 @@ def _fleet_counts(rd, fa, rp, sc, zero=False):
             "ragged_prefill": rp.launches, "stream_copy": sc.copy_launches}
 
 
-def _fleet_expected(gw, layers, chunk_replicas=(), cotenant=0):
+def _fleet_expected(gw, layers, chunk_replicas=(), cotenant=0, built=0):
     """The launches the engines' own counts imply: every decode step (one
-    detector sample each) runs 4 tokens x ``layers`` ragged decodes; every
-    PTT update of a whole-prompt engine that is not a decode step is a
-    prefill (``layers`` flash launches); a chunking engine's updates that
-    are not decode steps are chunks (``layers`` ragged prefills)."""
+    detector sample each) and each of the ``built`` cell builds (an
+    engine's, as it allocates its batch cache: at startup and after a
+    restart) runs 4 tokens x ``layers`` ragged decodes; every PTT update
+    of a whole-prompt engine that is not a decode step is a prefill
+    (``layers`` flash launches); a chunking engine's updates that are not
+    decode steps are chunks (``layers`` ragged prefills)."""
     det = gw.router.detector
-    exp = {"ragged_decode": 0, "flash_attention": 0, "ragged_prefill": 0,
-           "stream_copy": cotenant}
+    check(all(e.decode_chunk == 4 for e in gw.engines), "a chunk is not 4")
+    exp = {"ragged_decode": built * 4 * layers, "flash_attention": 0,
+           "ragged_prefill": 0, "stream_copy": cotenant}
     for r, e in enumerate(gw.engines):
         steps = int(det.samples[r])
         other = e.scheduler.ptt.updates - steps
-        exp["ragged_decode"] += steps * e.decode_chunk * layers
+        exp["ragged_decode"] += steps * 4 * layers
         exp["ragged_prefill" if r in chunk_replicas
             else "flash_attention"] += other * layers
     return exp
@@ -2113,12 +2197,15 @@ def phase_fleet(torch, card, model, params, reqs):
             if flips["r"] is not None:
                 return
             yield r
+    built0 = _cells_built(model)
     _fleet_counts(rd, fa, rp, sc, zero=True)
     routed, pumps, wall, sent = _drive(gw, run1, until_readmitted(),
                                        on_pump, FLEET_MAX_PUMPS)
     got = _fleet_counts(rd, fa, rp, sc)
+    builds = _cells_built(model) - built0
+    check(builds == 3, f"run 1: {builds} decode cells built for 3 replicas")
     _fleet_check_launches("run 1", got, _fleet_expected(
-        gw, L, cotenant=cot["launches"]))
+        gw, L, cotenant=cot["launches"], built=builds))
     add(got)
     check(flips["q"] is not None
           and FLEET_WINDOW[0] <= flips["q"] < FLEET_WINDOW[1],
@@ -2174,6 +2261,7 @@ def phase_fleet(torch, card, model, params, reqs):
     lat = _hook_steps(gw)
     pauses = _time_drains(gw)
     run1b = clones(FLEET_NEW)
+    built0 = _cells_built(model)
     _fleet_counts(rd, fa, rp, sc, zero=True)
     for r in run1b:
         gw.submit(r)
@@ -2191,7 +2279,8 @@ def phase_fleet(torch, card, model, params, reqs):
           f"sessions of replica {victim}")
     gw.run_until_drained(FLEET_MAX_PUMPS)
     got = _fleet_counts(rd, fa, rp, sc)
-    _fleet_check_launches("run 1b", got, _fleet_expected(gw, L))
+    _fleet_check_launches("run 1b", got, _fleet_expected(
+        gw, L, built=_cells_built(model) - built0))
     add(got)
     for r in run1b:
         check(r.done and list(r.out_tokens) == solo_of(r),
@@ -2209,11 +2298,18 @@ def phase_fleet(torch, card, model, params, reqs):
                       injector=inj, heartbeat_timeout=2)
     lat = _hook_steps(gw)
     run2 = clones(FLEET_NEW)
+    built0 = _cells_built(model)
     _fleet_counts(rd, fa, rp, sc, zero=True)
     routed, pumps, wall, sent = _drive(gw, run2, iter(()),
                                        lambda k: None, FLEET_MAX_PUMPS)
     got = _fleet_counts(rd, fa, rp, sc)
-    _fleet_check_launches("run 2", got, _fleet_expected(gw, L))
+    builds = _cells_built(model) - built0
+    # the restarted replica allocates a new cache and builds its cell anew
+    # as its first request is slotted, whenever that is; one more cell
+    # than replicas if it took one after its restart
+    check(3 <= builds <= 4, f"run 2: {builds} decode cells built")
+    _fleet_check_launches("run 2", got, _fleet_expected(gw, L,
+                                                        built=builds))
     add(got)
     st = gw.stats()
     crash = {k: st[k] for k in ("crashes_detected",
@@ -2263,13 +2359,15 @@ def phase_fleet(torch, card, model, params, reqs):
             gw.attach_timeseries(store)
         lat = _hook_steps(gw)
         run3 = clones(CHUNK_NEW)
+        built0 = _cells_built(model)
         _fleet_counts(rd, fa, rp, sc, zero=True)
         routed, pumps, wall, sent = _drive(gw, run3, iter(()),
                                            lambda k: None, 400)
         got = _fleet_counts(rd, fa, rp, sc)
         tag = ("run 3 (disaggregated, telemetry "
                f"{'on' if telemetry else 'off'})")
-        _fleet_check_launches(tag, got, _fleet_expected(gw, L, (0,)))
+        _fleet_check_launches(tag, got, _fleet_expected(
+            gw, L, (0,), built=_cells_built(model) - built0))
         add(got)
         n_chunks = sum(-(-len(r.prompt) // CHUNK) for r in run3)
         check(got["ragged_prefill"] == n_chunks * L
@@ -2399,9 +2497,10 @@ def phase_region(torch, seed, card, model, params, serve_reqs):
                 max_backoff=REGION_BACKOFF[1], jitter=0.0, seed=seed)
         else:
             transport = LoopbackTransport(link)
-        fleets = [FleetGateway([ServeEngine(model, params, max_batch=8,
-                                            max_seq=2048, decode_chunk=4)
-                                for _ in range(2)]) for _ in range(2)]
+        fleets = [FleetGateway([
+            ServeEngine(model, params, max_batch=8, max_seq=2048,
+                        decode_chunk=4) for _ in range(2)])
+            for _ in range(2)]
         lat = _hook_steps(fleets[1])      # fleet 1 decodes moved sessions
         region = RegionGateway(fleets, transport=transport)
         # the link's row trained, as by earlier traffic: a fresh request's
@@ -2416,6 +2515,7 @@ def phase_region(torch, seed, card, model, params, serve_reqs):
                    _timed(region, "_drain_browned_out", times["drain"])]
         reqs = [Request(rid=i, prompt=p, max_new=REGION_NEW)
                 for i, p in enumerate(prompts)]
+        built0 = _cells_built(model)
         _fleet_counts(rd, fa, rp, sc, zero=True)
         t0 = time.perf_counter()
         homes = [region.submit(r, origin=0, affinity=0).fleet for r in reqs]
@@ -2454,6 +2554,7 @@ def phase_region(torch, seed, card, model, params, serve_reqs):
             undo()
         got = _fleet_counts(rd, fa, rp, sc)
         exp = {k: 0 for k in got}
+        exp["ragged_decode"] = (_cells_built(model) - built0) * 4 * L
         for gw in fleets:
             for k, v in _fleet_expected(gw, L).items():
                 exp[k] += v
@@ -2577,10 +2678,15 @@ def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
     """The prompts (with ``extras[i]`` as request i's extras, if given)
     through an 8-slot engine (``max_seq`` 2048, chunks of 4) after a
     warm-up request: every request finishes with ``max_new``
-    in-vocabulary tokens.  The attention kernels' counts are set to 0 just
-    before the run and read just after.  Prints tok/s, TPOT, TTFT and the
-    peak memory; returns the requests, the per-token step latencies, the
-    launches, and the counts read just before they were set to 0."""
+    in-vocabulary tokens, and the engine builds one decode cell (its CUDA
+    graph).  The attention kernels' counts are set to 0 just before the
+    run and read just after.  Then the same prompts through an engine
+    over the eager loop the cell captures: the same tokens, and the same
+    launches but for the cell's build (one decode pass).  Prints tok/s,
+    TPOT, TTFT and the peak memory of both runs and the cell's capture
+    time; returns the graph run's requests, decode passes (steps and the
+    cell's build) and launches, and the counts read just before they were
+    set to 0."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ragged_decode import ops as rd
     from repro_torch.kernels.ragged_prefill import ops as rp
@@ -2592,48 +2698,80 @@ def _serve_family(torch, np, tag, cfg, model, params, prompts, max_new,
                         extras=extras[0]))
     warm.run_until_drained()
     del warm                  # its idle batch cache must not count in the peak
-
-    engine = ServeEngine(model, params, max_batch=8, max_seq=2048,
-                         decode_chunk=4)
     cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt)
                       .element_size() for shape, dt in
                       model.cache_spec(8, 2048).values())
-    reqs = [Request(rid=i, prompt=p, max_new=max_new, extras=x)
-            for i, (p, x) in enumerate(zip(prompts, extras))]
-    lat = []
-    engine.on_step_latency = lat.append
-    for r in reqs:
-        engine.submit(r)
-    earlier = {"ragged_decode": rd.launches, "flash_attention": fa.launches,
-               "ragged_prefill": rp.launches}
-    rd.launches = fa.launches = rp.launches = 0   # this path's run only
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches,
-                "ragged_prefill": rp.launches}
 
-    check(all(r.done for r in reqs), f"{tag}: not every request finished")
-    check(all(len(r.out_tokens) == max_new for r in reqs),
-          f"{tag}: token counts {[len(r.out_tokens) for r in reqs]}")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          f"{tag}: a token is outside [0, vocab)")
-    dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
-    ttft = sorted(r.t_first - r.t_admit for r in reqs)
-    print(f"[{tag}] {len(reqs)} requests x {max_new} tokens, prompts "
-          f"{min(map(len, prompts))}-{max(map(len, prompts))}: wall "
-          f"{wall:.3f} s, {len(lat)} decode steps")
-    print(f"[{tag}] decode {dec_tokens / (sum(lat) * 4):.1f} tok/s, p50 TPOT "
-          f"{1e3 * float(np.median(lat)):.3f} ms, p50 TTFT "
-          f"{1e3 * ttft[len(ttft) // 2]:.3f} ms ({card})")
-    print(f"[{tag}] launches in the run: {launches}")
-    print(f"[{tag}] peak device memory {peak} bytes; the batch cache "
-          f"{cache_bytes} bytes ({card})")
-    return reqs, lat, launches, earlier
+    def run(m, how):
+        engine = ServeEngine(m, params, max_batch=8, max_seq=2048,
+                             decode_chunk=4)
+        reqs = [Request(rid=i, prompt=p, max_new=max_new, extras=x)
+                for i, (p, x) in enumerate(zip(prompts, extras))]
+        lat = []
+        engine.on_step_latency = lat.append
+        for r in reqs:
+            engine.submit(r)
+        earlier = {"ragged_decode": rd.launches,
+                   "flash_attention": fa.launches,
+                   "ragged_prefill": rp.launches}
+        built0 = _cells_built(m)
+        rd.launches = fa.launches = rp.launches = 0   # this path's run only
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"ragged_decode": rd.launches,
+                    "flash_attention": fa.launches,
+                    "ragged_prefill": rp.launches}
+        captures = _capture_ms(m)[built0:]
+
+        check(all(r.done for r in reqs), f"{tag}: not every request finished")
+        check(all(len(r.out_tokens) == max_new for r in reqs),
+              f"{tag}: token counts {[len(r.out_tokens) for r in reqs]}")
+        check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+              f"{tag}: a token is outside [0, vocab)")
+        dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+        ttft = sorted(r.t_first - r.t_admit for r in reqs)
+        print(f"[{tag}] {how}: {len(reqs)} requests x {max_new} tokens, "
+              f"prompts {min(map(len, prompts))}-{max(map(len, prompts))}: "
+              f"wall {wall:.3f} s, {len(lat)} decode steps")
+        print(f"[{tag}] {how}: decode {dec_tokens / (sum(lat) * 4):.1f} "
+              f"tok/s, p50 TPOT {1e3 * float(np.median(lat)):.3f} ms, p50 "
+              f"TTFT {1e3 * ttft[len(ttft) // 2]:.3f} ms ({card})")
+        print(f"[{tag}] {how}: launches in the run: {launches}; decode "
+              f"cells built {len(captures)}, capture ms "
+              f"{[round(c, 3) for c in captures]}")
+        print(f"[{tag}] {how}: peak device memory {peak} bytes; the batch "
+              f"cache {cache_bytes} bytes ({card})")
+        return reqs, lat, launches, earlier, captures
+
+    reqs, lat, launches, earlier, captures = run(model, "graph")
+    check(len(captures) == 1, f"{tag}: the engine built {len(captures)} "
+          f"decode cells, not one (B 8, k 4)")
+    ereqs, elat, elaunches, _, ecaptures = run(_eager(model), "eager loop")
+    check(not ecaptures, f"{tag}: the eager loop built a cell")
+    check(len(elat) == len(lat), f"{tag}: {len(lat)} decode steps on the "
+          f"graph, {len(elat)} on the eager loop")
+    # the cell's build is one more decode pass: the eager run's launches a
+    # step, once more
+    per_step = elaunches["ragged_decode"] // max(len(elat), 1)
+    check(elaunches["ragged_decode"] == per_step * len(elat)
+          and launches["ragged_decode"] == per_step * _passes(len(lat), 1)
+          and all(launches[k] == elaunches[k] for k in launches
+                  if k != "ragged_decode"),
+          f"{tag}: launches: graph {launches}, eager loop {elaunches}, "
+          f"{len(lat)} steps and the cell's build")
+    for r, e in zip(reqs, ereqs):
+        check(r.out_tokens == e.out_tokens, f"{tag}: request {r.rid}: the "
+              f"graph's stream differs from the eager loop's:\n"
+              f"{r.out_tokens}\n{e.out_tokens}")
+    print(f"[{tag}] graph against eager loop: all {len(reqs)} streams "
+          f"identical, launches equal but for the cell's build "
+          f"({per_step} ragged decodes)")
+    return reqs, _passes(len(lat), len(captures)), launches, earlier
 
 
 def _decode_window(torch, model, params, reqs, label, card, ranges=()):
@@ -2683,31 +2821,38 @@ def phase_moe(torch, seed, card, serve_reqs):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
                for r in serve_reqs[::2]]
-    reqs, lat, launches, _ = _serve_family(torch, np, "moe", cfg, model,
-                                           params, prompts, MOE_NEW, card)
+    reqs, passes, launches, _ = _serve_family(torch, np, "moe", cfg, model,
+                                              params, prompts, MOE_NEW, card)
     check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
           f"moe: flash_attention launches {launches['flash_attention']} != "
           f"{len(reqs)} prefills x {cfg.n_layers} layers")
-    steps = len(lat)
-    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+    check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
           f"moe: ragged_decode launches {launches['ragged_decode']} != "
-          f"{steps} steps x 4 tokens x {cfg.n_layers} layers")
+          f"{passes} decode passes x 4 tokens x {cfg.n_layers} layers")
     lo, hi = min(map(len, prompts)), max(map(len, prompts))
     print(f"[moe] prefill capacity {moe.capacity(cfg, lo)}-"
           f"{moe.capacity(cfg, hi)} copies per expert; decode at no-drop "
           f"capacity 8")
 
+    prof = _decode_window(torch, model, params, reqs,
+                          "moe: 3 decode chunks x 4 tokens, 8 slots (graph)",
+                          card)
+    if prof is not None:
+        print(f"[moe] decode window (graph): device busy share "
+              f"{prof['busy'] / prof['wall']:.3f} ({card})")
     # where the decode's device time goes: attention kernels, routing and
-    # dispatch, expert products
+    # dispatch, expert products; on the eager loop, since a profiler range
+    # sees no kernel that a graph replays
     restore = _ranged(moe, ("moe_apply", "expert_ffn"))
     try:
-        prof = _decode_window(torch, model, params, reqs,
-                              "moe: 3 decode chunks x 4 tokens, 8 slots",
-                              card, ranges=("moe_apply", "expert_ffn"))
+        prof = _decode_window(torch, _eager(model), params, reqs,
+                              "moe: 3 decode chunks x 4 tokens, 8 slots "
+                              "(eager loop)", card,
+                              ranges=("moe_apply", "expert_ffn"))
     finally:
         restore()
     if prof is not None:
-        print(f"[moe] decode window: device busy share "
+        print(f"[moe] decode window (eager loop): device busy share "
               f"{prof['busy'] / prof['wall']:.3f} ({card})")
     if prof is not None and {"moe_apply", "expert_ffn"} <= prof.keys():
         print(f"[moe] decode window: MoE layers {prof['moe_apply']:.3f} ms "
@@ -2762,17 +2907,16 @@ def phase_moe_alt(torch, seed, card, serve_reqs):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
                for r in serve_reqs[::2]]
-    reqs, lat, launches, _ = _serve_family(torch, np, "moe-alt", cfg, model,
-                                           params, prompts, MOE_ALT_NEW,
-                                           card)
+    reqs, passes, launches, _ = _serve_family(torch, np, "moe-alt", cfg,
+                                              model, params, prompts,
+                                              MOE_ALT_NEW, card)
     check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
           f"moe-alt: flash_attention launches "
           f"{launches['flash_attention']} != {len(reqs)} prefills x "
           f"{cfg.n_layers} layers")
-    steps = len(lat)
-    check(launches["ragged_decode"] == steps * 4 * cfg.n_layers,
+    check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
           f"moe-alt: ragged_decode launches {launches['ragged_decode']} != "
-          f"{steps} steps x 4 tokens x {cfg.n_layers} layers")
+          f"{passes} decode passes x 4 tokens x {cfg.n_layers} layers")
     check(launches["ragged_prefill"] == 0, "moe-alt: a chunk kernel ran")
     _wire_check("moe-alt", model, params, min(prompts, key=len), MOE_ALT_NEW,
                 card)
@@ -2814,9 +2958,10 @@ def phase_ssm(torch, seed, card, serve_reqs):
           f"ssm: an attention kernel launched: {earlier} before the run, "
           f"{launches} in it")
     prof = _decode_window(torch, model, params, reqs,
-                          "ssm: 3 decode chunks x 4 tokens, 8 slots", card)
+                          "ssm: 3 decode chunks x 4 tokens, 8 slots (graph)",
+                          card)
     if prof is not None:
-        print(f"[ssm] decode window: device busy share "
+        print(f"[ssm] decode window (graph): device busy share "
               f"{prof['busy'] / prof['wall']:.3f} ({card})")
     longest = max(prompts, key=len)
     tokens = torch.as_tensor(longest, device="cuda").long()[None]
@@ -2868,14 +3013,15 @@ def phase_hybrid(torch, seed, card, serve_reqs):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, len(r.prompt))
                for r in serve_reqs[::2]]
-    reqs, lat, launches, _ = _serve_family(torch, np, "hybrid", cfg, model,
-                                           params, prompts, HYBRID_NEW, card)
+    reqs, passes, launches, _ = _serve_family(torch, np, "hybrid", cfg,
+                                              model, params, prompts,
+                                              HYBRID_NEW, card)
     check(launches["flash_attention"] == len(reqs) * nb,
           f"hybrid: flash_attention launches {launches['flash_attention']} "
           f"!= {len(reqs)} prefills x {nb} attention layers")
-    check(launches["ragged_decode"] == len(lat) * 4 * nb,
+    check(launches["ragged_decode"] == passes * 4 * nb,
           f"hybrid: ragged_decode launches {launches['ragged_decode']} != "
-          f"{len(lat)} steps x 4 tokens x {nb} attention layers")
+          f"{passes} decode passes x 4 tokens x {nb} attention layers")
     check(launches["ragged_prefill"] == 0, "hybrid: ragged_prefill launched")
     # every weight but the embedding table is read once a decode step:
     # the experts at no-drop capacity all take tokens
@@ -2886,12 +3032,21 @@ def phase_hybrid(torch, seed, card, serve_reqs):
           f"at least {1e3 * step_bytes / PEAKS['SXM'][0]:.3f} ms at "
           f"{PEAKS['SXM'][0]:.3g} B/s")
 
+    prof = _decode_window(torch, model, params, reqs,
+                          "hybrid: 3 decode chunks x 4 tokens, 8 slots "
+                          "(graph)", card)
+    if prof is not None:
+        print(f"[hybrid] decode window (graph): device busy share "
+              f"{prof['busy'] / prof['wall']:.3f}, {1e3 * prof['busy']:.3f} "
+              f"ms device time a window of 12 token steps ({card})")
+    # the split by layer kind: on the eager loop, since a profiler range
+    # sees no kernel that a graph replays
     names = ("moe_apply", "expert_ffn", "ssm_layer_step")
     restore = [_ranged(moe, names[:2]), _ranged(mamba2, names[2:])]
     try:
-        prof = _decode_window(torch, model, params, reqs,
-                              "hybrid: 3 decode chunks x 4 tokens, 8 slots",
-                              card, ranges=names)
+        prof = _decode_window(torch, _eager(model), params, reqs,
+                              "hybrid: 3 decode chunks x 4 tokens, 8 slots "
+                              "(eager loop)", card, ranges=names)
     finally:
         for r in restore:
             r()
@@ -2903,7 +3058,7 @@ def phase_hybrid(torch, seed, card, serve_reqs):
                  "expert products": prof.get("expert_ffn", 0.0),
                  "SSM layers": prof.get("ssm_layer_step", 0.0)}
         parts["the rest"] = busy - sum(parts.values())
-        print(f"[hybrid] decode window: device busy share "
+        print(f"[hybrid] decode window (eager loop): device busy share "
               f"{prof['busy'] / prof['wall']:.3f}, {busy:.3f} ms device "
               f"time a window of 12 token steps, {busy / 12:.3f} ms a step "
               f"({card})")
@@ -2982,15 +3137,15 @@ def phase_vlm(torch, seed, card, serve_reqs):
                for r in serve_reqs[::2]]
     images = [rng.standard_normal((cfg.n_image_tokens, cfg.d_model),
                                   dtype=np.float32) for _ in prompts]
-    reqs, lat, launches, _ = _serve_family(
+    reqs, passes, launches, _ = _serve_family(
         torch, np, "vlm", cfg, model, params, prompts, VLM_NEW, card,
         extras=[{"image_embeds": img} for img in images])
     check(launches["flash_attention"] == len(reqs) * cfg.n_layers,
           f"vlm: flash_attention launches {launches['flash_attention']} != "
           f"{len(reqs)} prefills x {cfg.n_layers} layers ({nb} cross)")
-    check(launches["ragged_decode"] == len(lat) * 4 * cfg.n_layers,
+    check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
           f"vlm: ragged_decode launches {launches['ragged_decode']} != "
-          f"{len(lat)} steps x 4 tokens x {cfg.n_layers} layers")
+          f"{passes} decode passes x 4 tokens x {cfg.n_layers} layers")
     check(launches["ragged_prefill"] == 0, "vlm: ragged_prefill launched")
     # every weight but the embedding table is read once a decode step
     step_bytes = sum(p.numel() * p.element_size()
@@ -3001,7 +3156,8 @@ def phase_vlm(torch, seed, card, serve_reqs):
           f"{PEAKS['SXM'][0]:.3g} B/s")
 
     prof = _decode_window(torch, model, params, reqs,
-                          "vlm: 3 decode chunks x 4 tokens, 8 slots", card)
+                          "vlm: 3 decode chunks x 4 tokens, 8 slots (graph)",
+                          card)
     parts = _attention_split(cfg, prof) if prof is not None else None
     if parts is None:
         print("[vlm] decode window split: not measured (the profile holds "
@@ -3562,8 +3718,11 @@ def phase_examples(torch, card):
 def phase_audit(torch, card, model, params):
     """``Model.decode_fused`` and ``Model.prefill_chunk`` of the serve
     phase's full-width model under ``torch.cuda.set_sync_debug_mode
-    ("error")``, with every cache tensor's ``data_ptr`` checked; then
-    ``python -m repro_torch.analysis`` (every layer) on the card."""
+    ("error")`` (the decode's replay of its cell; the call that builds
+    the cell, whose capture synchronizes, under the recorder alone), with
+    every cache tensor's ``data_ptr`` checked; the retrace budget
+    (:func:`_retrace_on_card`); then ``python -m repro_torch.analysis``
+    (every layer) on the card."""
     import dataclasses
     import os
     from repro_torch.analysis import audit
@@ -3576,10 +3735,11 @@ def phase_audit(torch, card, model, params):
     check(not findings, "audit findings:\n" + "\n".join(
         f.render() for f in findings))
     n_leaves = len(model.cache_spec(1, 1))
-    print(f"[audit] {model.cfg.name}: decode_fused (B 8, k 4, Smax 2048) "
-          f"and prefill_chunk (T 256) under set_sync_debug_mode('error'): "
-          f"no host sync, no float64 op, all {n_leaves} cache leaves kept "
-          f"their data_ptr; {host:.3f} s of host time ({card})")
+    print(f"[audit] {model.cfg.name}: decode_fused (B 8, k 4, Smax 2048: "
+          f"the call building its graph, then a replay under "
+          f"set_sync_debug_mode('error')) and prefill_chunk (T 256, under "
+          f"it): no host sync, no float64 op, all {n_leaves} cache leaves "
+          f"kept their data_ptr; {host:.3f} s of host time ({card})")
     # the gate itself on the card: a decode that reads a token on the host
     fused = model.decode_fused
 
@@ -3594,6 +3754,7 @@ def phase_audit(torch, card, model, params):
           f"the audit missed a .item() inside decode_fused: {bad}")
     print(f"[audit] a decode_fused with one .item() is caught: "
           f"{bad[0].message[:120]}")
+    _retrace_on_card(torch, card, model, params, audit)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
@@ -3606,6 +3767,58 @@ def phase_audit(torch, card, model, params):
           f"the audit of {len(audit.FAMILY_ARCHS)} families on the card): "
           f"exit 0, {r.stdout.strip().splitlines()[-1]} "
           f"({time.perf_counter() - t0:.2f} s)")
+
+
+def _retrace_on_card(torch, card, model, params, audit):
+    """The retrace budget on the card: ``audit_retrace`` over batches (2,
+    3) x chunks (1, 4) on each family's widened reduced config, and over
+    B 8, k 4 on the serve model, each building exactly one decode cell
+    (one CUDA graph) per (batch, chunk) cell; a decode whose key changes
+    every call flagged ``retrace-budget``."""
+    import dataclasses
+    from repro_torch.configs import get_config, widen_heads
+    from repro_torch.models import get_model
+    small = None
+    for arch in audit.FAMILY_ARCHS:
+        m = get_model(widen_heads(get_config(arch, reduced=True)))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        p = m.init(gen)
+        found = audit.audit_retrace(m, p)
+        cells = len(audit.BATCH_SHAPES) * len(audit.DECODE_CHUNKS)
+        check(not found and _cells_built(m) == cells,
+              f"retrace {arch}: {_cells_built(m)} cells for {cells}, "
+              f"findings {[f.render() for f in found]}")
+        print(f"[audit] retrace {m.cfg.name} (reduced, heads widened): "
+              f"batches {audit.BATCH_SHAPES} x chunks {audit.DECODE_CHUNKS}, "
+              f"two calls a cell: {cells} graphs for {cells} cells, capture "
+              f"ms {[round(c, 3) for c in _capture_ms(m)]} ({card})")
+        small = small or (m, p)
+    built0 = _cells_built(model)
+    found = audit.audit_retrace(model, params, batch_shapes=(8,),
+                                chunks=(4,), seq=2048)
+    built = _capture_ms(model)[built0:]
+    check(not found and len(built) == 1, f"retrace {model.cfg.name} B 8, "
+          f"k 4: {len(built)} cells, findings {found}")
+    print(f"[audit] retrace {model.cfg.name} (B 8, k 4, Smax 2048), two "
+          f"calls: 1 graph for 1 cell, capture {built[0]:.3f} ms ({card})")
+    # the control: a decode that hands the cell a new cache every call
+    m, p = small
+    fused = m.decode_fused
+
+    def unstable(params, tok, pos, cache, k):
+        copy = {n: t.clone() for n, t in cache.items()}
+        toks, nxt, pos, copy = fused(params, tok, pos, copy, k)
+        for n, t in cache.items():
+            t.copy_(copy[n])
+        return toks, nxt, pos, cache
+    unstable.cells = fused.cells
+    bad = audit.audit_retrace(dataclasses.replace(m, decode_fused=unstable),
+                              p)
+    check([f.rule for f in bad] == ["retrace-budget"],
+          f"the audit missed a decode that builds a cell every call: {bad}")
+    print(f"[audit] a decode that builds a cell every call is caught: "
+          f"{bad[0].message[:110]}")
 
 
 # ---------------------------------------------------------------------------
@@ -4464,18 +4677,44 @@ def _profile_window(torch, fn, label: str, card: str, top: int = 8,
     return out
 
 
-def phase_profile(torch, np, model, params, reqs, card):
+def phase_profile(torch, np, model, params, reqs, card, how,
+                  prefill=True):
     """Where the time goes: one traced window of three decode chunks on a
-    full batch, and one traced whole-prompt prefill of the longest
-    prompt."""
+    full batch (``how`` names the decode path), and one traced
+    whole-prompt prefill of the longest prompt.  The ``ragged_decode``
+    calls counted in the decode window are held against the split and
+    combine kernels in its trace."""
+    from repro_torch.kernels.ragged_decode import ops as rd
     from repro_torch.serve import Request, ServeEngine
     eng = ServeEngine(model, params, max_batch=8, max_seq=2048,
                       decode_chunk=4)
     for r in reqs[:8]:
         eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=64))
     eng.step()                        # admits all 8, first chunk
-    _profile_window(torch, lambda: [eng.step() for _ in range(3)],
-                    "3 decode chunks x 4 tokens, 8 slots", card)
+    n0 = rd.launches
+    prof = _profile_window(torch, lambda: [eng.step() for _ in range(3)],
+                           f"3 decode chunks x 4 tokens, 8 slots ({how})",
+                           card)
+    counted = rd.launches - n0
+    check(counted == 3 * 4 * model.cfg.n_layers,
+          f"{how}: {counted} ragged_decode calls counted in the window")
+    if prof is not None:
+        print(f"[profile] decode window ({how}): busy share "
+              f"{prof['busy'] / prof['wall']:.3f}, idle share "
+              f"{1 - prof['busy'] / prof['wall']:.3f} ({card})")
+        # a replay adds the launches its capture counted: the trace's own
+        # kernels, one split and one combine a call, hold that to account
+        names = [n for _, _, n in prof["sequence"].get("ragged_decode", ())]
+        split = sum("decode_split_" in n for n in names)
+        combine = sum("decode_combine" in n for n in names)
+        check(split == combine == counted,
+              f"{how}: the trace holds {split} split and {combine} combine "
+              f"kernels of ragged_decode, the counter {counted} calls")
+        print(f"[profile] decode window ({how}): ragged_decode calls "
+              f"counted {counted}, in the trace {split} split and "
+              f"{combine} combine kernels")
+    if not prefill:
+        return
     longest = max((r.prompt for r in reqs), key=len)
     tokens = torch.as_tensor(longest, device="cuda").long()[None]
     _profile_window(torch, lambda: model.prefill(params, {"tokens": tokens}),
@@ -4487,10 +4726,12 @@ def phase_profile(torch, np, model, params, reqs, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("flash_bwd", "mesh"),
+    ap.add_argument("--only", choices=("flash_bwd", "mesh", "graph"),
                     help="run the device and build phases and this part "
                          "alone (mesh: after the serve phase that builds "
-                         "its model), and print no result line")
+                         "its model; graph: the serve phase, graph against "
+                         "eager loop, and the audit), and print no result "
+                         "line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -4515,6 +4756,12 @@ def main() -> int:
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         if args.only == "flash_bwd":
             phase_flash_bwd(torch, args.seed, peaks, card)
+            return 0
+        if args.only == "graph":
+            _, model, params, _ = phase_serve(torch, args.seed, card)
+            phase_audit(torch, card, model, params)
+            print(f"[smoke] --only graph passed in "
+                  f"{time.perf_counter() - t_start:.1f} s ({card})")
             return 0
         if args.only == "mesh":
             _, model, params, reqs = phase_serve(torch, args.seed, card)

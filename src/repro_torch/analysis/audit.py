@@ -23,11 +23,19 @@ the same models; or a caller's model) under a recorder and checks:
   reach no dispatch at all.  On the card the call also runs under
   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
   synchronizing CUDA call.
+* **retrace-budget** — ``decode_fused`` builds one cell (one CUDA graph
+  on the card, :mod:`repro_torch.models.graphs`) per (batch, chunk) cell
+  and cache: swept over batches x chunks with two calls a cell, a fresh
+  cache per batch, it builds no more cells than there are (batch, chunk)
+  pairs.  ``decode_fused.cells()`` is the counterpart of the reference's
+  ``_cache_size()``.
 
-The reference's fourth check, the retrace budget (one executable per
-(chunk, batch) cell), has no counterpart yet: the port's decode is a
-Python loop with nothing compiled or captured.  It comes with the CUDA
-graph of the decode step, one graph per (batch, chunk) cell.
+``decode_fused`` is audited on two calls.  The first builds the cell: the
+recorder sees every op of its eager run, so float64 and host reads are
+checked there; on the card it runs outside the sync-debug mode, because
+entering a capture synchronizes the device.  The second replays the cell,
+where the recorder sees only the copies in and out: the ``data_ptr``s,
+and on the card the sync-debug mode, are checked on it too.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ FAMILY_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-130m",
 
 DECODE_CHUNK = 4
 DECODE_BATCH = 2
+BATCH_SHAPES = (2, 3)       # the retrace sweep: the reference's cells
+DECODE_CHUNKS = (1, 4)
 AUDIT_SEQ = 16
 PREFILL_CHUNK_T = 4
 
@@ -99,16 +109,12 @@ class _MethodRecorder(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def audited_call(fn, cache: dict, label: str, path: str = _MODELS_PATH):
-    """Run ``fn()``, which must return a tuple whose last item is the cache
-    (``{leaf: tensor}``) it was given, under the recorder; return
-    ``(result, findings)``."""
-    before = {n: t.data_ptr() for n, t in cache.items()}
-    rec = _Recorder()
-    on_card = any(t.is_cuda for t in cache.values())
-    out, raised = None, None
+def _recorded(fn, rec: _Recorder, sync_debug: bool):
+    """``fn()`` under ``rec`` (and, with ``sync_debug``, the card's
+    sync-debug mode); None when the mode raised on a synchronizing call,
+    which ``rec`` then holds."""
     with contextlib.ExitStack() as stack:
-        if on_card:
+        if sync_debug:
             torch.cuda.synchronize()        # nothing earlier is waited on
             prev = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
@@ -116,14 +122,28 @@ def audited_call(fn, cache: dict, label: str, path: str = _MODELS_PATH):
         stack.enter_context(rec)
         stack.enter_context(_MethodRecorder(rec.syncs))
         try:
-            out = fn()
+            return fn()
         except RuntimeError as e:
             if "synchroniz" not in str(e):
                 raise
-            raised = e
+            rec.syncs.add(f"a synchronizing CUDA call ({e})")
+            return None
+
+
+def audited_call(fn, cache: dict, label: str, path: str = _MODELS_PATH,
+                 build=None):
+    """Run ``fn()``, which must return a tuple whose last item is the cache
+    (``{leaf: tensor}``) it was given, under the recorder; return
+    ``(result, findings)``.  With ``build``, ``build()`` (the call that
+    builds what ``fn`` replays) runs first under the recorder, outside
+    the card's sync-debug mode, and its findings join ``fn``'s."""
+    before = {n: t.data_ptr() for n, t in cache.items()}
+    rec = _Recorder()
+    on_card = any(t.is_cuda for t in cache.values())
+    outs = [] if build is None else [_recorded(build, rec, False)]
+    outs.append(_recorded(fn, rec, on_card))
+    out = outs[-1]
     findings = []
-    if raised is not None:
-        rec.syncs.add(f"a synchronizing CUDA call ({raised})")
     if rec.syncs:
         findings.append(Finding(
             "host-sync", SEVERITY_ERROR, path, 0,
@@ -135,22 +155,23 @@ def audited_call(fn, cache: dict, label: str, path: str = _MODELS_PATH):
             "f64-promotion", SEVERITY_ERROR, path, 0,
             f"{label}: float64 values produced by {sorted(rec.f64)} — a "
             f"silent float64 promotion doubles cache bandwidth"))
-    if out is not None:
-        after = out[-1]
-        for name, ptr in before.items():
-            t = after.get(name)
-            if t is None or t.data_ptr() != ptr:
-                findings.append(Finding(
-                    "moved-cache", SEVERITY_ERROR, path, 0,
-                    f"{label}: cache leaf {name} is not the tensor it was "
-                    f"given — the cache is written in place (it replaces "
-                    f"the reference's donation), so a new tensor means a "
-                    f"full-cache copy per call"))
-        for name in sorted(set(after) - set(before)):
-            findings.append(Finding(
-                "moved-cache", SEVERITY_ERROR, path, 0,
-                f"{label}: the call returns cache leaf {name}, which it "
-                f"was not given"))
+    moved, added = set(), set()
+    for after in (o[-1] for o in outs if o is not None):
+        moved |= {name for name, ptr in before.items()
+                  if name not in after or after[name].data_ptr() != ptr}
+        added |= set(after) - set(before)
+    for name in (n for n in before if n in moved):
+        findings.append(Finding(
+            "moved-cache", SEVERITY_ERROR, path, 0,
+            f"{label}: cache leaf {name} is not the tensor it was "
+            f"given — the cache is written in place (it replaces "
+            f"the reference's donation), so a new tensor means a "
+            f"full-cache copy per call"))
+    for name in sorted(added):
+        findings.append(Finding(
+            "moved-cache", SEVERITY_ERROR, path, 0,
+            f"{label}: the call returns cache leaf {name}, which it "
+            f"was not given"))
     return out, findings
 
 
@@ -162,17 +183,55 @@ def zero_cache(model, batch: int, seq: int, device) -> dict:
 def audit_decode_fused(model, params, *, batch: int = DECODE_BATCH,
                        seq: int = AUDIT_SEQ, chunk: int = DECODE_CHUNK
                        ) -> list:
-    """Findings for one model's ``decode_fused`` on a zero cache."""
+    """Findings for one model's ``decode_fused`` on a zero cache: the
+    call that builds its cell, then a replay of it."""
     dev = params.device
     cache = zero_cache(model, batch, seq, dev)
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     pos = torch.arange(batch, dtype=torch.int32, device=dev)
     label = f"{model.cfg.name}: decode_fused(B={batch}, k={chunk})"
+
+    def call():
+        return model.decode_fused(params, tok, pos, cache, chunk)
     with torch.no_grad():
-        _, findings = audited_call(
-            lambda: model.decode_fused(params, tok, pos, cache, chunk),
-            cache, label)
+        _, findings = audited_call(call, cache, label, build=call)
     return findings
+
+
+def audit_retrace(model, params, *, batch_shapes=BATCH_SHAPES,
+                  chunks=DECODE_CHUNKS, seq: int = AUDIT_SEQ) -> list:
+    """``retrace-budget``: run the fused decode across every (batch,
+    chunk) cell, a fresh zero cache per batch and two calls a cell, and
+    require the cells it built (``decode_fused.cells()``) to be no more
+    than the cells swept.  A ``decode_fused`` without ``cells`` (the eager
+    loop) is not introspectable and yields nothing, as the reference's
+    audit does for a jit without ``_cache_size``."""
+    fused = model.decode_fused
+    if not hasattr(fused, "cells"):
+        return []
+    dev = params.device
+    built0 = fused.cells()
+    caches = []                     # alive until the count is read
+    with torch.no_grad():
+        for batch in batch_shapes:
+            cache = zero_cache(model, batch, seq, dev)
+            caches.append(cache)
+            tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+            pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+            for k in chunks:
+                # two calls per cell: the second must find the first's
+                _, tok, pos, cache = fused(params, tok, pos, cache, k)
+                _, tok, pos, cache = fused(params, tok, pos, cache, k)
+    budget = len(batch_shapes) * len(chunks)
+    built = fused.cells() - built0
+    if built > budget:
+        return [Finding(
+            "retrace-budget", SEVERITY_ERROR, _MODELS_PATH, 0,
+            f"{model.cfg.name}: decode_fused compiled {built} executables "
+            f"across {budget} (chunk x batch) cells — something unstable "
+            f"leaks into the trace and every extra compile is a serving "
+            f"stall")]
+    return []
 
 
 def audit_prefill_chunk(model, params, *, batch: int = 1,
@@ -196,8 +255,10 @@ def audit_prefill_chunk(model, params, *, batch: int = 1,
 
 
 def audit_family(arch: str, device=None, seed: int = 0) -> list:
-    """Both audits on one family's reduced config, its heads widened to
-    64 (:func:`repro_torch.configs.widen_heads`), weights from ``seed``."""
+    """The three audits on one family's reduced config, its heads widened
+    to 64 (:func:`repro_torch.configs.widen_heads`), weights from
+    ``seed``; the retrace budget on a fresh model, so its cells count from
+    0."""
     from ..configs import get_config, widen_heads
     from ..device import resolve_device
     from ..models import get_model
@@ -207,7 +268,8 @@ def audit_family(arch: str, device=None, seed: int = 0) -> list:
     gen.manual_seed(seed)
     params = model.init(gen, dev)
     return (audit_decode_fused(model, params)
-            + audit_prefill_chunk(model, params))
+            + audit_prefill_chunk(model, params)
+            + audit_retrace(get_model(model.cfg), params))
 
 
 def run_audit(archs=None, device=None) -> list:

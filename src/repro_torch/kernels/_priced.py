@@ -31,6 +31,11 @@ def run(name: str, flops, inputs: tuple, body):
     return out
 
 
+def active() -> bool:
+    """Whether a cost counter is pricing the wrappers' calls."""
+    return bool(_counters)
+
+
 @contextlib.contextmanager
 def counting(counter):
     """Route the wrappers' calls to ``counter`` while the block runs."""

@@ -23,12 +23,13 @@ import threading
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from .ref import sort_rows_ref
 
 launches = 0
 # worker threads launch concurrently; the counts rise under this lock
 _count_lock = threading.Lock()
+counters.register(__name__, "launches", lock=_count_lock)
 _CODES = {torch.float32: 0, torch.int32: 1}
 
 REG_LOG2 = 5            # 32 elements in a thread's registers (the kernel's kW)

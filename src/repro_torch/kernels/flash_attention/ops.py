@@ -36,12 +36,13 @@ import math
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from .ref import attention_ref, attention_ref_backward, attention_ref_lse
 
 launches = 0
 bwd_launches = 0
 dout_copies = 0
+counters.register(__name__, "launches", "bwd_launches", "dout_copies")
 HEAD_DIMS = (64, 80, 128)    # head widths the kernels are built for (the
                              # forward runs 80 on its 128-wide tiles,
                              # zero-filled by TMA)

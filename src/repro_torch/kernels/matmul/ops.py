@@ -20,12 +20,13 @@ import threading
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from .ref import matmul_ref
 
 launches = 0
 # worker threads launch concurrently; the counts rise under this lock
 _count_lock = threading.Lock()
+counters.register(__name__, "launches", lock=_count_lock)
 
 # the kernel's constants (csrc/matmul.cu): kBM, kBN, kBK, kStages, kThreads
 BM, BN, BK, STAGES, THREADS = 16, 16, 64, 3, 64

@@ -20,10 +20,11 @@ import math
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from .ref import ragged_decode_ref
 
 launches = 0
+counters.register(__name__, "launches")
 MAX_REP = 16                 # query heads per kv head the kernel takes
 HEAD_DIMS = (64, 128)        # head widths the kernel is built for
 SPLIT_TILE = 64              # a split's length is a multiple of this

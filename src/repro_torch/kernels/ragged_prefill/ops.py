@@ -19,11 +19,12 @@ import math
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from ..flash_attention.ops import check_tma
 from .ref import ragged_prefill_ref
 
 launches = 0
+counters.register(__name__, "launches")
 MAX_REP = 16                 # query heads per kv head the kernel takes
 HEAD_DIMS = (64, 128)        # head widths the kernel is built for
 

@@ -18,13 +18,15 @@ import threading
 
 import torch
 
-from .. import _build, _priced
+from .. import _build, _priced, counters
 from .ref import stream_copy_ref, stream_scale_add_ref
 
 copy_launches = 0
 scale_add_launches = 0
 # worker threads launch concurrently; the counts rise under this lock
 _count_lock = threading.Lock()
+counters.register(__name__, "copy_launches", "scale_add_launches",
+                  lock=_count_lock)
 
 
 def stream_copy(x: torch.Tensor, *,

@@ -23,10 +23,12 @@ On top of those, :class:`Model` exposes the per-slot session helpers and
 ``decode_fused``, the serving fast path: a k-step greedy loop over the
 family's single-step ``decode`` with the cache updated in place and the
 argmax on the device.  Where the reference scans ``decode`` inside one jit
-with the cache donated, the port runs a Python loop: the cache tensors are
-written in place, so their ``data_ptr`` never changes across calls, and
-tokens and positions stay on the device until the caller copies the
-``(B, k)`` block of ids to the host once.
+with the cache donated, one executable per (batch, chunk) cell, the port
+captures the loop as one CUDA graph per (batch, chunk) cell and cache
+(:mod:`.graphs`; on the CPU the cell runs the loop eagerly).  The cache
+tensors are written in place, so their ``data_ptr`` never changes across
+calls, and tokens and positions stay on the device until the caller
+copies the ``(B, k)`` block of ids to the host once.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import jamba, mamba2, moe, sessions, transformer, vlm
+from . import graphs, jamba, mamba2, moe, sessions, transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +54,8 @@ class Model:
     decode_fused: Callable        # (params, token (B,1), pos (B,), cache, k)
                                   # -> (tokens (B,k), next_token, pos, cache)
                                   # greedy fast path: cache updated in place,
-                                  # argmax on device, k steps per call
+                                  # argmax on device, k steps per call; a
+                                  # graphs.FusedDecode (.eager is the loop)
     cache_spec: Callable
     cache_logical_axes: Callable
     cache_seq_axes: Callable
@@ -70,10 +73,11 @@ _FAMILY = {"dense": transformer, "audio": transformer, "moe": moe,
 
 
 def _fused_decode(cfg: ModelConfig, mod) -> Callable:
-    """k greedy decode steps over ``mod.decode``: the cache is written in
-    place, ``argmax`` runs on the device, and nothing is copied to the
-    host.  Returns ``(tokens (B, k), next token (B, 1), pos (B,), cache)``
-    with the same cache tensors it was given."""
+    """k greedy decode steps over ``mod.decode``, eagerly: the cache is
+    written in place, ``argmax`` runs on the device, and nothing is copied
+    to the host.  Returns ``(tokens (B, k), next token (B, 1), pos (B,),
+    cache)`` with the same cache tensors it was given.  The body each
+    :class:`graphs.FusedDecode` cell captures."""
     def fused(params, token, pos, cache, k: int):
         toks = torch.empty((token.shape[0], k), dtype=torch.long,
                            device=token.device)
@@ -107,7 +111,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, init=bind(mod.init),
                  forward=bind(mod.forward),
                  prefill=bind(mod.prefill), decode=bind(mod.decode),
-                 decode_fused=_fused_decode(cfg, mod),
+                 decode_fused=graphs.FusedDecode(_fused_decode(cfg, mod)),
                  prefill_chunk=bind(mod.prefill_chunk) if chunkable else None,
                  cache_spec=bind(mod.cache_spec),
                  cache_logical_axes=bind(mod.cache_logical_axes),

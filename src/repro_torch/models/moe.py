@@ -75,12 +75,14 @@ from torch import nn
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
 from ..distributed import tp
+from ..kernels import counters
 from . import layers as L
 from . import transformer
 
 # all_to_all_single calls made by moe_ep, counted where they are made, as
 # the kernels' wrappers count their launches
 a2a_calls = 0
+counters.register(__name__, "a2a_calls")
 
 
 def _check_layout(cfg: ModelConfig) -> None:

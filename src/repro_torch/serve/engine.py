@@ -24,7 +24,9 @@ constructor and surface.
   between chunks — the only host transfer per step is the ``(B, k)`` block
   of token ids.  A slot that reaches ``max_new`` (or the cache edge)
   mid-chunk keeps only its tokens up to that point.  ``fused=False`` keeps
-  the legacy per-token path (``Model.decode`` + device argmax);
+  the legacy per-token path (``Model.decode`` + device argmax).  On the
+  card the engine builds ``decode_fused``'s cell (its CUDA graph) for the
+  batch cache as it allocates it, so no decode step carries a capture;
 * finished sequences free their slots immediately;
 * a live request can leave the engine as a :class:`Session`
   (``export_session``) and resume on another engine (``import_session``),
@@ -283,6 +285,26 @@ class ServeEngine:
     def _ensure_cache(self) -> None:
         if self.cache is None:
             self.cache = self._zero_cache(self.max_batch)
+            if self.fused and self.device.type == "cuda":
+                self._prepare_decode()
+
+    def _prepare_decode(self) -> None:
+        """Build the decode cell of the new cache (``decode_fused``'s CUDA
+        graph at this batch and chunk, :mod:`repro_torch.models.graphs`)
+        before any slot holds a sequence: at startup and after a restart.
+        A build runs the decode once eagerly and captures it, a few hundred
+        ms, which in the first decode step would reach the PTT and the
+        fleet's detector as this replica's step time.  The eager run
+        decodes every slot at position 0, the throwaway decode an idle
+        slot runs every step; a slot's prefill or imported session
+        overwrites that row and state."""
+        prepare = getattr(self.model.decode_fused, "prepare", None)
+        if prepare is not None:
+            tok = torch.zeros((self.max_batch, 1), dtype=torch.long,
+                              device=self.device)
+            pos = torch.zeros(self.max_batch, dtype=torch.int32,
+                              device=self.device)
+            prepare(self.params, tok, pos, self.cache, self.decode_chunk)
 
     def _chunking(self) -> bool:
         """Whether chunked prefill admission is live on this engine."""
