@@ -7,7 +7,8 @@ GPU: the quickest proof that the port builds, is right, and serves.
 (``--only flash_bwd`` runs the device and build phases and the flash
 backward's cases alone, with a profile of its kernels; ``--only mesh``
 the device, build, serve and mesh phases; ``--only graph`` the device,
-build, serve and audit phases; none prints a result line.)
+build, serve, chunked and audit phases, every cell of the serving
+entry points without rules; none prints a result line.)
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -78,19 +79,30 @@ Phases, in order; any failure exits non-zero before the last line:
              same prompts through an engine on the eager loop the cell
              captures give the same 16 streams and launches (tok/s, TPOT,
              TTFT and a profiled window's busy and idle shares of both);
-             and a session exported mid-decode and imported into a second
-             engine must continue the same token stream as the unmigrated
-             request;
+             the same prompts on a legacy engine (``fused=False``, one
+             token a step on its ``decode_step`` cell) give the same 16
+             streams, 24 ragged decodes a token step and the cell's
+             build; and a session exported mid-decode and imported into a
+             second engine must continue the same token stream as the
+             unmigrated request;
 6. chunked — the same 16 prompts through a second engine that prefills in
              chunks of 256 tokens (the ``ragged_prefill`` kernel), 16 new
-             tokens each: every request finishes in vocabulary, and the
-             chunk, decode and whole-prompt kernels launched exactly as
-             often as the run's chunks and decode steps say; a prefill
-             exported after 2 of 4 chunks and a ``role="prefill"`` engine
-             handing its sessions to a ``role="decode"`` engine both
-             continue the unmigrated chunked stream token for token; and
-             the chunked and whole-prompt prefills of the longest prompt
-             agree on its last-token logits within a stated limit;
+             tokens each, the chunk on the engine's one chunk cell (its
+             CUDA graph, built as the engine allocates its working
+             prefill cache): every request finishes in vocabulary, and
+             the chunk, decode and whole-prompt kernels launched exactly
+             as often as the run's chunks, decode steps and cell builds
+             say; the same requests on an engine that calls the chunk
+             eagerly give the same streams (TTFT and chunk latency of
+             both); a prefill exported after 2 of 4 chunks and a
+             ``role="prefill"`` engine handing its sessions to a
+             ``role="decode"`` engine both continue the unmigrated
+             chunked stream token for token; the chunked and
+             whole-prompt prefills of the longest prompt agree on its
+             last-token logits within a stated limit; and its chunked
+             prefill is traced on the cell and eagerly, the
+             ``ragged_prefill`` kernels in each trace equal to the calls
+             counted (idle shares of both);
 7. wire    — the serve phase's model: a session exported mid-decode and a
              prefill exported after 2 of its chunks travel as wire bytes
              (``export_session_wire``) over a ``LoopbackTransport`` to a
@@ -239,7 +251,9 @@ Phases, in order; any failure exits non-zero before the last line:
              attention kernels launched, losses finite.
 The serving families (10-14) each run their prompts on the graph and
 again on the eager loop: the same streams and launches, one cell built.
-The fleet and region replicas build their decode cells before traffic.
+The fleet and region replicas build their decode cells before traffic,
+and fleet run 3's prefill replica its chunk cell (one, its build's 24
+``ragged_prefill`` launches counted).
 Between the region and the MoE phases, the audit (20): the serve phase's
 model's ``decode_fused`` (B 8, k 4: the call building its graph, then a
 replay) and ``prefill_chunk`` (T 256) under
@@ -247,7 +261,8 @@ replay) and ``prefill_chunk`` (T 256) under
 its ``data_ptr`` and no op returning float64, a decode that reads a
 token on the host caught; the retrace budget (one graph per (batch,
 chunk) cell for the five families' widened reduced configs over (2, 3)
-x (1, 4) and for the serve model at B 8, k 4; a decode that builds a
+x (1, 4), one per batch for the dense family's ``prefill_chunk``, and
+for the serve model at B 8, k 4 and T 256; a decode that builds a
 cell every call caught); then ``python -m repro_torch.analysis`` (lint,
 contracts and the audit of all five families on the card) exiting 0.
 After the audit, the mesh phase (21): a one-rank NCCL process group
@@ -256,9 +271,14 @@ to initialise fails the phase) and a (data 1, model 1) ``DeviceMesh``;
 under ``use_rules`` the serve phase's model on 4 of its prompts, 64 new
 tokens each, through the sharded dense layers (``distributed/tp.py``:
 every all-gather, reduce-scatter and all-reduce at group size 1; tokens
-identical to the same prompts without rules, 24 flash launches a
-prefill, 4 x 24 ragged decodes a step, the cost counter's kernel calls
-equal to them, the collectives printed by kind), one qwen2-0.5b 8 x 1024
+identical to the same prompts without rules, the decode on one cell
+captured under the NCCL layout, 24 flash launches a prefill, 4 x 24
+ragged decodes a step and a build, the cost counter's kernel calls
+equal to them, the collectives printed by kind; a decode chunk's cell
+built and replayed on new tokens under the layout, bitwise the eager
+loop on a twin cache, then both traced: the same kernels, the NCCL
+annotations by kind of the eager trace beside the counter's), one
+qwen2-0.5b 8 x 1024
 train step under rules (loss within 1e-6 relative of the step without
 them, 48 flash and 24 flash-backward launches),
 granite-moe-1b-a400m's 8 x 1024 prefill through ``moe_ep`` (2 x 24
@@ -270,8 +290,9 @@ qwen2-0.5b's training state (params, m, v: 5.9 GB of f32) onto a fresh
 mesh, timed, after which one 8 x 1024 train step is bitwise equal to one
 without the move.  Then, in the same group: the chunked phase's
 requests served chunked under rules (the chunks through
-``ragged_prefill`` with its log-sum-exp, merged over ``model``; tokens
-as the chunked phase's, 24 ``ragged_prefill`` launches a chunk),
+``ragged_prefill`` with its log-sum-exp, merged over ``model``, on one
+chunk cell and one decode cell captured under the layout; tokens as the
+chunked phase's, 24 ``ragged_prefill`` launches a chunk and a build),
 mamba2-130m's 8 x 1024 prefill with the SSD on the rank's block of
 heads (logits and caches bitwise), the qwen2 step with
 ``microbatches=2`` and ``compress_dcn`` (loss bitwise the step without
@@ -283,7 +304,8 @@ takes CUDA tensors for every collective ``tp`` runs) run qwen2-0.5b's
 chunked prefill on a (data 1, model 2) mesh, each rank on its half of a
 2048-row cache (chunks crossing the halves' boundary and the cache's
 end, padded rows, qlen 0): logits against the unsharded chunked prefill
-within 2^-4 of the largest logit, 24 launches a chunk on each rank.
+within 2^-4 of the largest logit, 24 launches a chunk on each rank,
+no cell built under the gloo layout (its collectives run on the host).
 Then, without a group: ``ragged_decode``'s log-sum-exp output against its
 plain version (B 8, Smax 2048, 14/2 heads, positions mixed) and two
 half-cache calls merged by it against one whole-cache call; the cost
@@ -1469,15 +1491,16 @@ def phase_train(torch, seed, card):
 # 5. serve
 # ---------------------------------------------------------------------------
 
-def _cells_built(model) -> int:
-    """The decode cells ``model.decode_fused`` has built (the eager loop
-    builds none)."""
-    return len(_capture_ms(model))
+def _cells_built(model, entry: str = "decode_fused") -> int:
+    """The cells ``model``'s entry point ``entry`` (``decode_fused``,
+    ``prefill_chunk`` or ``decode_step``) has built (an eager body builds
+    none)."""
+    return len(_capture_ms(model, entry))
 
 
-def _capture_ms(model) -> list:
-    """Each decode cell's capture time on the host, in build order."""
-    return list(getattr(model.decode_fused, "capture_ms", ()))
+def _capture_ms(model, entry: str = "decode_fused") -> list:
+    """Each cell's capture time on the host, in build order."""
+    return list(getattr(getattr(model, entry), "capture_ms", ()))
 
 
 def _passes(steps: int, built: int) -> int:
@@ -1489,11 +1512,12 @@ def _passes(steps: int, built: int) -> int:
     return steps + built
 
 
-def _eager(model):
-    """``model`` with ``decode_fused`` the eager k-step loop that its
-    cells capture: what the graph path is held against."""
+def _eager(model, entry: str = "decode_fused"):
+    """``model`` with the entry point ``entry`` its eager body, the one
+    its cells capture (the k-step loop, the chunk): what the cells are
+    held against."""
     import dataclasses
-    return dataclasses.replace(model, decode_fused=model.decode_fused.eager)
+    return dataclasses.replace(model, **{entry: getattr(model, entry).eager})
 
 
 def _solo_stream(torch, np, model, params, prompt, max_new, export_after):
@@ -1552,19 +1576,21 @@ def phase_serve(torch, seed, card):
     warm.run_until_drained()
     del warm                  # its idle batch cache must not count in the peak
 
-    def run(m, how):
-        """The 16 prompts through a fresh engine over ``m``: checks,
-        prints, and (requests, per-token latencies, launches, capture ms
-        of the cells built)."""
+    def run(m, how, fused=True):
+        """The 16 prompts through a fresh engine over ``m`` (with
+        ``fused`` False on the per-step legacy path, one token a step):
+        checks, prints, and (requests, per-token latencies, launches,
+        capture ms of the decode cells built)."""
         reqs = [Request(rid=i, prompt=p, max_new=max_new)
                 for i, p in enumerate(prompts)]
         engine = ServeEngine(m, params, max_batch=8, max_seq=2048,
-                             decode_chunk=4)
+                             decode_chunk=4, fused=fused)
         lat = []
         engine.on_step_latency = lat.append
         for r in reqs:
             engine.submit(r)
-        built0 = _cells_built(m)
+        entry, k = ("decode_fused", 4) if fused else ("decode_step", 1)
+        built0 = _cells_built(m, entry)
         rd.launches = fa.launches = 0       # count the main path's run only
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1575,7 +1601,7 @@ def phase_serve(torch, seed, card):
         peak = torch.cuda.max_memory_allocated()
         launches = {"ragged_decode": rd.launches,
                     "flash_attention": fa.launches}
-        captures = _capture_ms(m)[built0:]
+        captures = _capture_ms(m, entry)[built0:]
 
         check(all(r.done for r in reqs), "not every request finished")
         check(all(len(r.out_tokens) == max_new for r in reqs),
@@ -1590,14 +1616,14 @@ def phase_serve(torch, seed, card):
               f"{cfg.n_layers} layers")
         steps = len(lat)
         passes = _passes(steps, len(captures))
-        check(launches["ragged_decode"] == passes * 4 * cfg.n_layers,
+        check(launches["ragged_decode"] == passes * k * cfg.n_layers,
               f"{how}: ragged_decode launches {launches['ragged_decode']} "
               f"!= {passes} decode passes ({steps} steps, "
-              f"{len(captures)} cell builds) x 4 tokens x {cfg.n_layers} "
+              f"{len(captures)} cell builds) x {k} tokens x {cfg.n_layers} "
               f"layers")
 
         dec_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
-        dec_time = sum(lat) * 4
+        dec_time = sum(lat) * k
         ttft = sorted(r.t_first - r.t_admit for r in reqs)
         ptt_updates = engine.scheduler.ptt.updates
         print(f"[serve] {how}: {n_req} requests x {max_new} tokens, prompts "
@@ -1633,6 +1659,18 @@ def phase_serve(torch, seed, card):
               f"{e.out_tokens}")
     print(f"[serve] graph against eager loop: all {len(reqs)} streams "
           f"identical, launches equal but for the cell's build {build}")
+    # the per-step legacy path (fused=False) on its decode_step cell
+    lreqs, _, llaunches, lcaptures = run(model, "legacy step", fused=False)
+    check(len(lcaptures) == 1, f"the legacy engine built {len(lcaptures)} "
+          f"decode_step cells, not one (B 8)")
+    for r, e in zip(reqs, lreqs):
+        check(r.out_tokens == e.out_tokens, f"request {r.rid}: the legacy "
+              f"step cell's stream differs from the fused graph's:\n"
+              f"{e.out_tokens}\n{r.out_tokens}")
+    print(f"[serve] legacy step cell against the fused graph: all "
+          f"{len(reqs)} streams identical; ragged_decode "
+          f"{llaunches['ragged_decode']} (24 a token step and the build's "
+          f"24), capture {lcaptures[0]:.3f} ms ({card})")
 
     phase_profile(torch, np, model, params, reqs, card, "graph")
     phase_profile(torch, np, eager, params, reqs, card, "eager loop",
@@ -1708,8 +1746,10 @@ def _chunked_solo(model, params, prompt, mode):
     return list(req.out_tokens)
 
 
-def phase_chunked(torch, card, model, params, whole_reqs):
-    import numpy as np
+def _chunked_run(torch, np, model, params, whole_reqs, how, card):
+    """The whole-prompt run's prompts, ``CHUNK_NEW`` new each, through a
+    fresh chunked engine over ``model``: checks, prints, and (requests,
+    launches, chunk cells built with their capture ms)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ragged_decode import ops as rd
     from repro_torch.kernels.ragged_prefill import ops as rp
@@ -1718,12 +1758,6 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     cfg = model.cfg
     reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=CHUNK_NEW)
             for r in whole_reqs]
-    warm = _chunked_engine(model, params)
-    warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:CHUNK + 8],
-                        max_new=8))
-    warm.run_until_drained()
-    del warm                  # its idle batch cache must not count in the peak
-
     engine = _chunked_engine(model, params)
     lat, chunk_lat = [], []
     engine.on_step_latency = lat.append
@@ -1731,6 +1765,7 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     for r in reqs:
         engine.submit(r)
     built0 = _cells_built(model)
+    chunk0 = _cells_built(model, "prefill_chunk")
     rd.launches = fa.launches = rp.launches = 0  # count this run only
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1742,19 +1777,25 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     launches = {"ragged_decode": rd.launches,
                 "flash_attention": fa.launches,
                 "ragged_prefill": rp.launches}
+    captures = _capture_ms(model, "prefill_chunk")[chunk0:]
 
-    check(all(r.done for r in reqs), "chunked: not every request finished")
+    check(all(r.done for r in reqs), f"chunked ({how}): not every request "
+          f"finished")
     check(all(len(r.out_tokens) == CHUNK_NEW for r in reqs),
-          f"chunked: token counts {[len(r.out_tokens) for r in reqs]}")
+          f"chunked ({how}): token counts "
+          f"{[len(r.out_tokens) for r in reqs]}")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          "chunked: a token is outside [0, vocab)")
+          f"chunked ({how}): a token is outside [0, vocab)")
     check(engine.stats()["requests_served"] == len(reqs), "served count")
     n_chunks = sum(-(-len(r.prompt) // CHUNK) for r in reqs)
     check(len(chunk_lat) == n_chunks,
           f"{len(chunk_lat)} chunk latencies for {n_chunks} chunks")
-    check(launches["ragged_prefill"] == n_chunks * cfg.n_layers,
-          f"ragged_prefill launches {launches['ragged_prefill']} != "
-          f"{n_chunks} chunks x {cfg.n_layers} layers")
+    # each chunk cell's build runs one warm-up chunk (qlen 0) eagerly
+    passes = n_chunks + len(captures)
+    check(launches["ragged_prefill"] == passes * cfg.n_layers,
+          f"chunked ({how}): ragged_prefill launches "
+          f"{launches['ragged_prefill']} != ({n_chunks} chunks + "
+          f"{len(captures)} cell builds) x {cfg.n_layers} layers")
     check(launches["flash_attention"] == 0,
           f"flash_attention launched {launches['flash_attention']} times "
           f"in the chunked run")
@@ -1768,15 +1809,99 @@ def phase_chunked(torch, card, model, params, whole_reqs):
           f"ptt.updates {engine.scheduler.ptt.updates} != {n_chunks} "
           f"chunks + {steps} decode steps")
     ttft = sorted(r.t_first - r.t_admit for r in reqs)
-    print(f"[chunked] {len(reqs)} requests x {CHUNK_NEW} tokens, chunks of "
-          f"{CHUNK}: {n_chunks} chunks, {steps} decode steps, wall "
-          f"{wall:.3f} s")
-    print(f"[chunked] p50 TTFT {1e3 * ttft[len(ttft) // 2]:.3f} ms, p50 "
-          f"chunk latency {1e3 * float(np.median(chunk_lat)):.3f} ms, p50 "
-          f"per-token step latency {1e3 * float(np.median(lat)):.3f} ms "
+    print(f"[chunked] {how}: {len(reqs)} requests x {CHUNK_NEW} tokens, "
+          f"chunks of {CHUNK}: {n_chunks} chunks, {steps} decode steps, "
+          f"wall {wall:.3f} s")
+    print(f"[chunked] {how}: p50 TTFT {1e3 * ttft[len(ttft) // 2]:.3f} ms, "
+          f"p50 chunk latency {1e3 * float(np.median(chunk_lat)):.3f} ms, "
+          f"p50 per-token step latency {1e3 * float(np.median(lat)):.3f} ms "
           f"({card})")
-    print(f"[chunked] launches in the run: {launches}")
-    print(f"[chunked] peak device memory {peak} bytes ({card})")
+    print(f"[chunked] {how}: launches in the run: {launches}; chunk cells "
+          f"built {len(captures)}, capture ms "
+          f"{[round(c, 3) for c in captures]}")
+    print(f"[chunked] {how}: peak device memory {peak} bytes ({card})")
+    return reqs, launches, captures
+
+
+def _chunk_window(torch, model, params, fn, prompt, label, card):
+    """The chunked prefill of ``prompt`` through ``fn`` (the chunk cell or
+    its eager body) into one cache, zeroed first: once (on the cell, the
+    call that builds it), then again under a profile window, where the
+    ``ragged_prefill`` calls counted are held against the chunk kernels
+    in its trace.  Returns (the first run's last logits, the window's
+    profile)."""
+    from repro_torch.kernels.ragged_prefill import ops as rp
+    tokens = torch.as_tensor(prompt, device="cuda").long()[None]
+    cache = {n: torch.zeros(shape, dtype=dt, device="cuda")
+             for n, (shape, dt) in model.cache_spec(1, 2048).items()}
+
+    def chain():
+        for t in cache.values():
+            t.zero_()
+        for s in range(0, len(prompt), CHUNK):
+            n = min(CHUNK, len(prompt) - s)
+            chunk = torch.zeros((1, CHUNK), dtype=torch.long, device="cuda")
+            chunk[0, :n] = tokens[0, s:s + n]
+            logits, _ = fn(
+                params, chunk, cache,
+                torch.tensor([s], dtype=torch.int32, device="cuda"),
+                torch.tensor([n], dtype=torch.int32, device="cuda"))
+        return logits
+
+    first = chain()
+    check(torch.equal(chain(), first), f"{label}: a second chunked prefill "
+          f"of the same prompt gave other logits")
+    n0 = rp.launches
+    prof = _profile_window(torch, chain, f"chunked prefill of {len(prompt)} "
+                           f"tokens in chunks of {CHUNK} ({label})", card)
+    counted = rp.launches - n0
+    chunks = -(-len(prompt) // CHUNK)
+    check(counted == chunks * model.cfg.n_layers,
+          f"{label}: {counted} ragged_prefill calls counted in the window, "
+          f"not {chunks} chunks x {model.cfg.n_layers}")
+    if prof is not None:
+        names = [n for _, _, n in prof["sequence"].get("ragged_prefill", ())]
+        kernels = sum("prefill_bf16_wgmma" in n for n in names)
+        check(kernels == counted, f"{label}: the trace holds {kernels} "
+              f"ragged_prefill kernels, the counter {counted} calls")
+        print(f"[profile] chunked window ({label}): ragged_prefill calls "
+              f"counted {counted}, in the trace {kernels} kernels")
+    return first, prof
+
+
+def phase_chunked(torch, card, model, params, whole_reqs):
+    import numpy as np
+    from repro_torch.serve import Request
+
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=CHUNK_NEW)
+            for r in whole_reqs]
+    warm = _chunked_engine(model, params)
+    warm.submit(Request(rid=-1, prompt=reqs[0].prompt[:CHUNK + 8],
+                        max_new=8))
+    warm.run_until_drained()
+    del warm                  # its idle batch cache must not count in the peak
+
+    # the main path: prefill_chunk on the engine's one chunk cell; then
+    # the same requests on an engine that calls the chunk eagerly
+    reqs, launches, captures = _chunked_run(torch, np, model, params,
+                                            whole_reqs, "cell", card)
+    check(len(captures) == 1, f"the chunked engine built {len(captures)} "
+          f"chunk cells, not one")
+    ereqs, elaunches, ecaptures = _chunked_run(
+        torch, np, _eager(model, "prefill_chunk"), params, whole_reqs,
+        "eager chunk", card)
+    check(not ecaptures, "the eager chunk built a cell")
+    for r, e in zip(reqs, ereqs):
+        check(r.out_tokens == e.out_tokens, f"request {r.rid}: the chunk "
+              f"cell's stream differs from the eager chunk's:\n"
+              f"{r.out_tokens}\n{e.out_tokens}")
+    L = model.cfg.n_layers
+    check(launches["ragged_prefill"] == elaunches["ragged_prefill"] + L,
+          f"ragged_prefill launches: cell {launches['ragged_prefill']}, "
+          f"eager {elaunches['ragged_prefill']}, and the build's {L}")
+    print(f"[chunked] chunk cell against the eager chunk: all {len(reqs)} "
+          f"streams identical, ragged_prefill launches equal but for the "
+          f"cell's build ({L})")
     same = sum(a.out_tokens[0] == b.out_tokens[0]
                for a, b in zip(reqs, whole_reqs))
     print(f"[chunked] first tokens equal to the whole-prompt run's: "
@@ -1793,21 +1918,8 @@ def phase_chunked(torch, card, model, params, whole_reqs):
 
     tokens = torch.as_tensor(prompt, device="cuda").long()[None]
     whole, _ = model.prefill(params, {"tokens": tokens})
-
-    def chain():
-        cache = {n: torch.zeros(shape, dtype=dt, device="cuda")
-                 for n, (shape, dt) in model.cache_spec(1, 2048).items()}
-        for s in range(0, len(prompt), CHUNK):
-            n = min(CHUNK, len(prompt) - s)
-            chunk = torch.zeros((1, CHUNK), dtype=torch.long, device="cuda")
-            chunk[0, :n] = tokens[0, s:s + n]
-            logits, cache = model.prefill_chunk(
-                params, chunk, cache,
-                torch.tensor([s], dtype=torch.int32, device="cuda"),
-                torch.tensor([n], dtype=torch.int32, device="cuda"))
-        return logits
-
-    chunked = chain()
+    chunked, prof = _chunk_window(torch, model, params, model.prefill_chunk,
+                                  prompt, "cell", card)
     diff = (whole.float() - chunked.float()).abs().max().item()
     scale = whole.float().abs().max().item()
     limit = LOGIT_REL_LIMIT * scale
@@ -1816,8 +1928,16 @@ def phase_chunked(torch, card, model, params, whole_reqs):
     print(f"[chunked] last-token logits, whole vs chunked prefill of "
           f"{len(prompt)} tokens: max abs diff {diff:.4g}, limit "
           f"{limit:.4g} (2^-4 of max |logit| {scale:.4g})")
-    _profile_window(torch, chain, f"chunked prefill of {len(prompt)} tokens "
-                    f"in chunks of {CHUNK}", card)
+    eager, eprof = _chunk_window(torch, model, params,
+                                 model.prefill_chunk.eager, prompt,
+                                 "eager chunk", card)
+    check(torch.equal(chunked, eager), "the chunk cell's last logits differ "
+          "from the eager chunk's")
+    if prof is not None and eprof is not None:
+        print(f"[chunked] window idle share {1 - prof['busy'] / prof['wall']:.3f}"
+              f" (eager chunk {1 - eprof['busy'] / eprof['wall']:.3f}), wall "
+              f"{1e3 * prof['wall']:.3f} ms ({1e3 * eprof['wall']:.3f}); "
+              f"capture of the engine's cell {captures[0]:.3f} ms ({card})")
     # the streams, for the mesh phase's run of the same requests
     return dict(launches, tokens=[list(r.out_tokens) for r in reqs])
 
@@ -1972,18 +2092,21 @@ def _fleet_counts(rd, fa, rp, sc, zero=False):
             "ragged_prefill": rp.launches, "stream_copy": sc.copy_launches}
 
 
-def _fleet_expected(gw, layers, chunk_replicas=(), cotenant=0, built=0):
+def _fleet_expected(gw, layers, chunk_replicas=(), cotenant=0, built=0,
+                    chunk_built=0):
     """The launches the engines' own counts imply: every decode step (one
-    detector sample each) and each of the ``built`` cell builds (an
+    detector sample each) and each of the ``built`` decode cell builds (an
     engine's, as it allocates its batch cache: at startup and after a
     restart) runs 4 tokens x ``layers`` ragged decodes; every PTT update
     of a whole-prompt engine that is not a decode step is a prefill
     (``layers`` flash launches); a chunking engine's updates that are not
-    decode steps are chunks (``layers`` ragged prefills)."""
+    decode steps are chunks (``layers`` ragged prefills), and each of the
+    ``chunk_built`` chunk cell builds (as an engine allocates its working
+    prefill cache) one more chunk."""
     det = gw.router.detector
     check(all(e.decode_chunk == 4 for e in gw.engines), "a chunk is not 4")
     exp = {"ragged_decode": built * 4 * layers, "flash_attention": 0,
-           "ragged_prefill": 0, "stream_copy": cotenant}
+           "ragged_prefill": chunk_built * layers, "stream_copy": cotenant}
     for r, e in enumerate(gw.engines):
         steps = int(det.samples[r])
         other = e.scheduler.ptt.updates - steps
@@ -2360,19 +2483,25 @@ def phase_fleet(torch, card, model, params, reqs):
         lat = _hook_steps(gw)
         run3 = clones(CHUNK_NEW)
         built0 = _cells_built(model)
+        chunk0 = _cells_built(model, "prefill_chunk")
         _fleet_counts(rd, fa, rp, sc, zero=True)
         routed, pumps, wall, sent = _drive(gw, run3, iter(()),
                                            lambda k: None, 400)
         got = _fleet_counts(rd, fa, rp, sc)
         tag = ("run 3 (disaggregated, telemetry "
                f"{'on' if telemetry else 'off'})")
+        chunk_built = _cells_built(model, "prefill_chunk") - chunk0
         _fleet_check_launches(tag, got, _fleet_expected(
-            gw, L, (0,), built=_cells_built(model) - built0))
+            gw, L, (0,), built=_cells_built(model) - built0,
+            chunk_built=chunk_built))
         add(got)
         n_chunks = sum(-(-len(r.prompt) // CHUNK) for r in run3)
-        check(got["ragged_prefill"] == n_chunks * L
+        check(chunk_built == 1, f"{tag}: the prefill replica built "
+              f"{chunk_built} chunk cells, not one")
+        check(got["ragged_prefill"] == (n_chunks + chunk_built) * L
               and got["flash_attention"] == 0,
-              f"{tag}: {n_chunks} chunks x {L} layers expected")
+              f"{tag}: ({n_chunks} chunks + the cell's build) x {L} layers "
+              f"expected")
         st = gw.stats()
         check(st["prefill_handoffs"] == len(run3),
               f"{tag}: {st['prefill_handoffs']} handoffs != {len(run3)}")
@@ -3786,22 +3915,32 @@ def _retrace_on_card(torch, card, model, params, audit):
         p = m.init(gen)
         found = audit.audit_retrace(m, p)
         cells = len(audit.BATCH_SHAPES) * len(audit.DECODE_CHUNKS)
-        check(not found and _cells_built(m) == cells,
-              f"retrace {arch}: {_cells_built(m)} cells for {cells}, "
+        chunks = len(audit.BATCH_SHAPES) if m.prefill_chunk else 0
+        check(not found and _cells_built(m) == cells
+              and _cells_built(m, "prefill_chunk") == chunks,
+              f"retrace {arch}: {_cells_built(m)} decode cells for {cells}, "
+              f"{_cells_built(m, 'prefill_chunk')} chunk cells for {chunks}, "
               f"findings {[f.render() for f in found]}")
         print(f"[audit] retrace {m.cfg.name} (reduced, heads widened): "
               f"batches {audit.BATCH_SHAPES} x chunks {audit.DECODE_CHUNKS}, "
               f"two calls a cell: {cells} graphs for {cells} cells, capture "
-              f"ms {[round(c, 3) for c in _capture_ms(m)]} ({card})")
+              f"ms {[round(c, 3) for c in _capture_ms(m)]}"
+              + (f"; prefill_chunk over batches {audit.BATCH_SHAPES}: "
+                 f"{chunks} graphs, capture ms "
+                 f"{[round(c, 3) for c in _capture_ms(m, 'prefill_chunk')]}"
+                 if chunks else "") + f" ({card})")
         small = small or (m, p)
-    built0 = _cells_built(model)
+    built0 = (_cells_built(model), _cells_built(model, "prefill_chunk"))
     found = audit.audit_retrace(model, params, batch_shapes=(8,),
-                                chunks=(4,), seq=2048)
-    built = _capture_ms(model)[built0:]
-    check(not found and len(built) == 1, f"retrace {model.cfg.name} B 8, "
-          f"k 4: {len(built)} cells, findings {found}")
-    print(f"[audit] retrace {model.cfg.name} (B 8, k 4, Smax 2048), two "
-          f"calls: 1 graph for 1 cell, capture {built[0]:.3f} ms ({card})")
+                                chunks=(4,), seq=2048, chunk_t=CHUNK)
+    built = _capture_ms(model)[built0[0]:]
+    chunk = _capture_ms(model, "prefill_chunk")[built0[1]:]
+    check(not found and len(built) == len(chunk) == 1,
+          f"retrace {model.cfg.name} B 8, k 4 and T {CHUNK}: {len(built)} "
+          f"decode and {len(chunk)} chunk cells, findings {found}")
+    print(f"[audit] retrace {model.cfg.name} (B 8, k 4, Smax 2048; chunks "
+          f"of {CHUNK}), two calls: 1 graph for 1 cell each, capture "
+          f"{built[0]:.3f} ms (decode), {chunk[0]:.3f} ms (chunk) ({card})")
     # the control: a decode that hands the cell a new cache every call
     m, p = small
     fused = m.decode_fused
@@ -4105,7 +4244,8 @@ def _chunked_serve(torch, model, params, reqs, rules_mesh=None):
     """The chunked phase's requests (each prompt, ``CHUNK_NEW`` new) on a
     chunked engine, under the rules of ``rules_mesh`` when given: (token
     streams, chunks, decode steps, launches of ragged_prefill, ragged
-    decode and flash, wall seconds)."""
+    decode and flash, wall seconds, capture ms of the chunk cells and of
+    the decode cells built)."""
     import contextlib
     from repro_torch.distributed.sharding import use_rules
     from repro_torch.kernels.flash_attention import ops as fa
@@ -4122,6 +4262,7 @@ def _chunked_serve(torch, model, params, reqs, rules_mesh=None):
         eng.submit(r)
     n0 = (rp.launches, rd.launches, fa.launches)
     rp.launches = rd.launches = fa.launches = 0
+    built0 = (_cells_built(model, "prefill_chunk"), _cells_built(model))
     t0 = time.perf_counter()
     with use_rules(rules_mesh) if rules_mesh is not None \
             else contextlib.nullcontext():
@@ -4129,7 +4270,9 @@ def _chunked_serve(torch, model, params, reqs, rules_mesh=None):
     torch.cuda.synchronize()
     out = ([list(r.out_tokens) for r in rs], len(chunks), len(lat),
            (rp.launches, rd.launches, fa.launches),
-           time.perf_counter() - t0)
+           time.perf_counter() - t0,
+           (_capture_ms(model, "prefill_chunk")[built0[0]:],
+            _capture_ms(model)[built0[1]:]))
     rp.launches, rd.launches, fa.launches = n0
     return out
 
@@ -4142,22 +4285,28 @@ def _chunked_under_rules(torch, card, model, params, reqs, mesh, free):
     launches."""
     if free is None:
         free = _chunked_serve(torch, model, params, reqs)[0]
-    toks, n_chunks, steps, (n_rp, n_rd, n_fa), wall = _chunked_serve(
-        torch, model, params, reqs, mesh)
+    toks, n_chunks, steps, (n_rp, n_rd, n_fa), wall, (cc, dc) = \
+        _chunked_serve(torch, model, params, reqs, mesh)
     L = model.cfg.n_layers
     check(toks == free, "chunked serve under rules: tokens differ from the "
           "same prompts without rules")
     check(n_chunks == sum(-(-len(r.prompt) // CHUNK) for r in reqs),
           f"chunked serve under rules: {n_chunks} chunks")
-    check((n_rp, n_rd, n_fa) == (n_chunks * L, steps * 4 * L, 0),
-          f"chunked serve under rules: launches {(n_rp, n_rd, n_fa)} != "
-          f"{(n_chunks * L, steps * 4 * L, 0)}")
-    print(f"[mesh] {model.cfg.name} chunked serve under rules (chunks of "
-          f"{CHUNK} through ragged_prefill with its log-sum-exp, merged "
-          f"over model at group size 1): {len(reqs)} prompts x {CHUNK_NEW} "
-          f"tokens identical to the run without rules; launches {n_rp} "
-          f"ragged_prefill ({n_chunks} chunks x {L}), {n_rd} ragged decode "
-          f"({steps} steps x 4 x {L}), 0 flash; wall {wall:.3f} s ({card})")
+    check(len(cc) == len(dc) == 1, f"chunked serve under rules: "
+          f"{len(cc)} chunk cells and {len(dc)} decode cells built, not one "
+          f"each under the layout")
+    want = ((n_chunks + 1) * L, (steps + 1) * 4 * L, 0)
+    check((n_rp, n_rd, n_fa) == want, f"chunked serve under rules: "
+          f"launches {(n_rp, n_rd, n_fa)} != {want}")
+    print(f"[mesh] {model.cfg.name} chunked serve under rules on cells "
+          f"captured under the NCCL layout (chunks of {CHUNK} through "
+          f"ragged_prefill with its log-sum-exp, merged over model at group "
+          f"size 1): {len(reqs)} prompts x {CHUNK_NEW} tokens identical to "
+          f"the run without rules; launches {n_rp} ragged_prefill "
+          f"(({n_chunks} chunks + the build) x {L}), {n_rd} ragged decode "
+          f"(({steps} steps + the build) x 4 x {L}), 0 flash; capture "
+          f"{cc[0]:.3f} ms (chunk), {dc[0]:.3f} ms (decode); wall "
+          f"{wall:.3f} s ({card})")
     return {"ragged_prefill": n_rp, "ragged_decode": n_rd}
 
 
@@ -4321,9 +4470,12 @@ def _gloo_chunked_body(seed: int, tokens):
                 cfg, convert.param_tree(cfg, full)), "cuda")
             del full
             rp.launches = 0
+            built0 = model.prefill_chunk.cells()
             got = chain(local, True)
             n = rp.launches
-    return {"want": want.numpy(), "got": got.numpy(), "launches": n}
+            built = model.prefill_chunk.cells() - built0
+    return {"want": want.numpy(), "got": got.numpy(), "launches": n,
+            "cells": built}
 
 
 def _gloo_chunked(torch, np, seed, card):
@@ -4350,6 +4502,8 @@ def _gloo_chunked(torch, np, seed, card):
         want_n = len(GLOO_STARTS) * cfg.n_layers
         check(o["launches"] == want_n, f"gloo rank {r}: {o['launches']} "
               f"ragged_prefill launches != {want_n}")
+        check(o["cells"] == 0, f"gloo rank {r}: {o['cells']} chunk cells "
+              f"built under the gloo layout, which runs the chunk eagerly")
         same = int((o["got"].argmax(-1) == o["want"].argmax(-1)).sum())
         print(f"[mesh] gloo rank {r} of 2 on one card, (data 1, model 2): "
               f"qwen2-0.5b chunked prefill, {len(GLOO_STARTS)} calls of 8 "
@@ -4358,8 +4512,129 @@ def _gloo_chunked(torch, np, seed, card):
               f"log-sum-exp: logits max abs diff {diff:.4g} from the "
               f"unsharded (limit {LOGIT_REL_LIMIT * scale:.4g}), argmax "
               f"equal in {same} of {o['got'].shape[0] * o['got'].shape[1]}; "
-              f"{o['launches']} ragged_prefill launches; wall {wall:.1f} s "
-              f"for both ranks ({card})")
+              f"{o['launches']} ragged_prefill launches, eager by the gloo "
+              f"rule (no cell built); wall {wall:.1f} s for both ranks "
+              f"({card})")
+
+
+def _device_ops(torch, fn) -> dict:
+    """``fn()`` under torch.profiler: {name: count} of the device-side
+    events, kernels, copies and the process group's GPU annotations
+    (``nccl:*``).  A spin kernel runs first in the window and is left
+    out: the trace has been seen to miss the first device op launched
+    after the profiler starts (one kernel of an eager decode chunk, the
+    two copies a replayed cell starts with)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if ("cuda" in str(getattr(e, "device_type", "")).lower()
+                and "spin_kernel" not in e.name):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+_NCCL_KINDS = (("all_gather", "all-gather"),
+               ("reduce_scatter", "reduce-scatter"),
+               ("all_reduce", "all-reduce"))
+
+
+def _collectives_replayed(torch, model, params, mesh, counted, card):
+    """A decode chunk under rules on the one-rank NCCL mesh (8 slots, Smax
+    2048, 4 tokens) on its cell captured under the layout, against the
+    eager loop on a twin of the cache: the build and two replays on new
+    tokens give the eager loop's tokens and caches bit for bit, so each
+    replay runs the collectives' data movement (on one rank NCCL launches
+    no kernel: an all-gather or a reduce-scatter is a device copy, an
+    all-reduce in place nothing).  Then one eager chunk and one replay
+    traced: the same kernels by name, and counts and device copies within
+    1 % of the eager loop's (the trace has been seen to drop a few of a
+    replay's burst of records; the cell adds its 2 copies in and 3 clones
+    out).  The eager trace's NCCL annotations by kind are printed beside
+    the cost counter's collectives (``counted``)."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.ragged_decode import ops as rd
+    k = COUNTED_DECODE[2]
+    tok, pos, cache = _decode_inputs(torch, model, "cuda")
+    twin = {n: t.clone() for n, t in cache.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n0 = rd.launches
+    with use_rules(mesh), torch.no_grad():
+        fused = model.decode_fused
+        built0 = _cells_built(model)
+        t0 = time.perf_counter()
+        got = fused(params, tok, pos, cache, k)             # builds it
+        build_s = time.perf_counter() - t0
+        check(_cells_built(model) == built0 + 1, "the decode under rules "
+              "built no cell")
+        want = fused.eager(params, tok, pos, twin, k)
+        for i in range(3):
+            check(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+                  and all(torch.equal(cache[n], twin[n]) for n in cache),
+                  f"under rules, the cell's call {i} (0 its build) differs "
+                  f"from the eager loop's on the same inputs")
+            if i < 2:                                       # new tokens
+                t2 = torch.randint(0, model.cfg.vocab, tok.shape,
+                                   generator=gen, device="cuda")
+                got = fused(params, t2, got[2], cache, k)
+                want = fused.eager(params, t2, want[2], twin, k)
+        eager = _device_ops(torch,
+                            lambda: fused.eager(params, tok, pos, twin, k))
+        replay = _device_ops(torch, lambda: fused(params, tok, pos, cache, k))
+        times = []
+        for f in (lambda: fused.eager(params, tok, pos, twin, k),
+                  lambda: fused(params, tok, pos, cache, k)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                f()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 5)
+    rd.launches = n0                  # comparison launches do not count
+    by_kind = {}
+    for name, n in eager.items():
+        if name.startswith("nccl:"):
+            kind = next((k2 for part, k2 in _NCCL_KINDS if part in name),
+                        name)
+            by_kind[kind] = by_kind.get(kind, 0) + n
+    memcpy = "Memcpy DtoD (Device -> Device)"
+
+    def kernels(ops):
+        return {n: c for n, c in ops.items()
+                if not n.startswith(("nccl:", "Memcpy", "Memset"))}
+    want_k, got_k = kernels(eager), kernels(replay)
+    off = sum(abs(got_k.get(n, 0) - c) for n, c in want_k.items())
+    check(set(got_k) == set(want_k) and off <= 0.01 * sum(want_k.values()),
+          f"the replayed decode chunk under rules ran other kernels than "
+          f"the eager loop: names only in the replay "
+          f"{sorted(set(got_k) - set(want_k))}, only in the eager loop "
+          f"{sorted(set(want_k) - set(got_k))}, counts off by {off} of "
+          f"{sum(want_k.values())}")
+    extra = replay.get(memcpy, 0) - eager.get(memcpy, 0)
+    check(abs(extra) <= 5 + 0.01 * eager.get(memcpy, 0),
+          f"the replayed decode chunk under rules ran {replay.get(memcpy)} "
+          f"device-to-device copies, the eager loop {eager.get(memcpy)}")
+    check(sum(by_kind.values()) > 0, "the eager decode chunk under rules "
+          "traced no NCCL operation")
+    print(f"[mesh] a decode chunk under rules (8 slots, Smax 2048, 4 "
+          f"tokens) on its cell captured under the layout: the build and "
+          f"two replays on new tokens bitwise the eager loop's tokens and "
+          f"caches; traced, the eager loop's NCCL annotations by kind "
+          f"{by_kind} (the cost counter: {counted}); the replay ran "
+          f"{sum(got_k.values())} kernels against the eager loop's "
+          f"{sum(want_k.values())}, the same {len(want_k)} names, counts "
+          f"off by {off} in all, and "
+          f"{replay.get(memcpy, 0)} device-to-device copies against "
+          f"{eager.get(memcpy, 0)}; host time a chunk: eager loop "
+          f"{1e3 * times[0]:.3f} ms, cell {1e3 * times[1]:.3f} ms, the "
+          f"cell's build {1e3 * build_s:.1f} ms ({card})")
 
 
 def phase_mesh(torch, seed, card, model, params, reqs, chunked=None):
@@ -4424,23 +4699,27 @@ def phase_mesh(torch, seed, card, model, params, reqs, chunked=None):
             for r in rs:
                 eng.submit(r)
             rd.launches = fa.launches = 0
+            built0 = _cells_built(model)
             t0 = time.perf_counter()
             with use_rules(mesh) if rules else contextlib.nullcontext():
                 eng.run_until_drained()
             torch.cuda.synchronize()
             return ([list(r.out_tokens) for r in rs], len(lat),
-                    rd.launches, fa.launches, time.perf_counter() - t0)
+                    rd.launches, fa.launches, time.perf_counter() - t0,
+                    _capture_ms(model)[built0:])
         free = serve(False)
-        toks, steps, n_rd, n_fa, wall = serve(True)
+        toks, steps, n_rd, n_fa, wall, caps = serve(True)
         check(toks == free[0], "serve under rules: tokens differ from the "
               "same prompts without rules")
         check(all(len(t) == 64 for t in toks), "serve under rules: counts")
         check(n_fa == len(prompts) * cfg.n_layers,
               f"serve under rules: {n_fa} flash launches != "
               f"{len(prompts)} x {cfg.n_layers}")
-        check(n_rd == steps * 4 * cfg.n_layers,
-              f"serve under rules: {n_rd} ragged decodes != {steps} steps "
-              f"x 4 x {cfg.n_layers}")
+        check(len(caps) == 1, f"serve under rules: {len(caps)} decode "
+              f"cells built under the layout, not one")
+        check(n_rd == (steps + 1) * 4 * cfg.n_layers,
+              f"serve under rules: {n_rd} ragged decodes != ({steps} steps "
+              f"+ the cell's build) x 4 x {cfg.n_layers}")
         n0 = (rd.launches, fa.launches)
         with use_rules(mesh), torch.no_grad():
             coll = {}
@@ -4454,14 +4733,18 @@ def phase_mesh(torch, seed, card, model, params, reqs, chunked=None):
                                          mesh, chunked).items():
             launches[k] = launches.get(k, 0) + n
         print(f"[mesh] {cfg.name} under rules, through the sharded dense "
-              f"layers (every collective at group size 1): "
-              f"{len(prompts)} prompts x 64 "
+              f"layers (every collective at group size 1), the decode on a "
+              f"cell captured under the NCCL layout (capture "
+              f"{caps[0]:.3f} ms): {len(prompts)} prompts x 64 "
               f"tokens identical to the run without rules; launches "
               f"{n_fa} flash ({cfg.n_layers} a prefill), {n_rd} ragged "
-              f"decode ({steps} steps x 4 x {cfg.n_layers}); wall "
-              f"{wall:.3f} s (without rules {free[4]:.3f} s); collectives "
-              f"by kind of an 8-slot 4-token decode chunk {coll['decode']} "
-              f"and of a 1,024-token prefill {coll['prefill']}")
+              f"decode (({steps} steps + the build) x 4 x {cfg.n_layers}); "
+              f"wall {wall:.3f} s (without rules {free[4]:.3f} s); "
+              f"collectives by kind of an 8-slot 4-token decode chunk "
+              f"{coll['decode']} and of a 1,024-token prefill "
+              f"{coll['prefill']} ({card})")
+        _collectives_replayed(torch, model, params, mesh, coll["decode"],
+                              card)
 
         # granite-moe-1b-a400m: an 8,192-token prefill through moe_ep
         gcfg = get_config("granite-moe-1b-a400m")
@@ -4730,8 +5013,9 @@ def main() -> int:
                     help="run the device and build phases and this part "
                          "alone (mesh: after the serve phase that builds "
                          "its model; graph: the serve phase, graph against "
-                         "eager loop, and the audit), and print no result "
-                         "line")
+                         "eager loop and the legacy step cell, the chunked "
+                         "phase, chunk cell against eager chunk, and the "
+                         "audit), and print no result line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -4758,7 +5042,8 @@ def main() -> int:
             phase_flash_bwd(torch, args.seed, peaks, card)
             return 0
         if args.only == "graph":
-            _, model, params, _ = phase_serve(torch, args.seed, card)
+            _, model, params, reqs = phase_serve(torch, args.seed, card)
+            phase_chunked(torch, card, model, params, reqs)
             phase_audit(torch, card, model, params)
             print(f"[smoke] --only graph passed in "
                   f"{time.perf_counter() - t_start:.1f} s ({card})")

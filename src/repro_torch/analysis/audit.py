@@ -25,17 +25,19 @@ the same models; or a caller's model) under a recorder and checks:
   synchronizing CUDA call.
 * **retrace-budget** — ``decode_fused`` builds one cell (one CUDA graph
   on the card, :mod:`repro_torch.models.graphs`) per (batch, chunk) cell
-  and cache: swept over batches x chunks with two calls a cell, a fresh
-  cache per batch, it builds no more cells than there are (batch, chunk)
-  pairs.  ``decode_fused.cells()`` is the counterpart of the reference's
+  and cache, and ``prefill_chunk`` one per (batch, chunk length) cell and
+  cache: swept over batches (x chunks for the decode) with two calls a
+  cell, a fresh cache per batch, each builds no more cells than there
+  are cells swept.  ``.cells()`` is the counterpart of the reference's
   ``_cache_size()``.
 
-``decode_fused`` is audited on two calls.  The first builds the cell: the
-recorder sees every op of its eager run, so float64 and host reads are
-checked there; on the card it runs outside the sync-debug mode, because
-entering a capture synchronizes the device.  The second replays the cell,
-where the recorder sees only the copies in and out: the ``data_ptr``s,
-and on the card the sync-debug mode, are checked on it too.
+``decode_fused`` and ``prefill_chunk`` are audited on two calls each.
+The first builds the cell: the recorder sees every op of its eager run,
+so float64 and host reads are checked there; on the card it runs outside
+the sync-debug mode, because entering a capture synchronizes the device.
+The second replays the cell, where the recorder sees only the copies in
+and out: the ``data_ptr``s, and on the card the sync-debug mode, are
+checked on it too.
 """
 
 from __future__ import annotations
@@ -198,46 +200,73 @@ def audit_decode_fused(model, params, *, batch: int = DECODE_BATCH,
     return findings
 
 
-def audit_retrace(model, params, *, batch_shapes=BATCH_SHAPES,
-                  chunks=DECODE_CHUNKS, seq: int = AUDIT_SEQ) -> list:
-    """``retrace-budget``: run the fused decode across every (batch,
-    chunk) cell, a fresh zero cache per batch and two calls a cell, and
-    require the cells it built (``decode_fused.cells()``) to be no more
-    than the cells swept.  A ``decode_fused`` without ``cells`` (the eager
-    loop) is not introspectable and yields nothing, as the reference's
-    audit does for a jit without ``_cache_size``."""
-    fused = model.decode_fused
-    if not hasattr(fused, "cells"):
+def _over_budget(model, what: str, built: int, budget: int,
+                 cells: str) -> list:
+    if built <= budget:
         return []
+    return [Finding(
+        "retrace-budget", SEVERITY_ERROR, _MODELS_PATH, 0,
+        f"{model.cfg.name}: {what} compiled {built} executables across "
+        f"{budget} ({cells}) cells — something unstable leaks into the "
+        f"trace and every extra compile is a serving stall")]
+
+
+def audit_retrace(model, params, *, batch_shapes=BATCH_SHAPES,
+                  chunks=DECODE_CHUNKS, seq: int = AUDIT_SEQ,
+                  chunk_t: int = PREFILL_CHUNK_T) -> list:
+    """``retrace-budget``: run the fused decode across every (batch,
+    chunk) cell, and ``prefill_chunk`` (T ``chunk_t``) across every batch,
+    a fresh zero cache per batch and two calls a cell, and require the
+    cells each built (``.cells()``) to be no more than the cells swept.
+    An entry point without ``cells`` (the eager body) is not
+    introspectable and yields nothing, as the reference's audit does for
+    a jit without ``_cache_size``."""
     dev = params.device
-    built0 = fused.cells()
-    caches = []                     # alive until the count is read
-    with torch.no_grad():
-        for batch in batch_shapes:
-            cache = zero_cache(model, batch, seq, dev)
-            caches.append(cache)
-            tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
-            pos = torch.zeros(batch, dtype=torch.int32, device=dev)
-            for k in chunks:
-                # two calls per cell: the second must find the first's
-                _, tok, pos, cache = fused(params, tok, pos, cache, k)
-                _, tok, pos, cache = fused(params, tok, pos, cache, k)
-    budget = len(batch_shapes) * len(chunks)
-    built = fused.cells() - built0
-    if built > budget:
-        return [Finding(
-            "retrace-budget", SEVERITY_ERROR, _MODELS_PATH, 0,
-            f"{model.cfg.name}: decode_fused compiled {built} executables "
-            f"across {budget} (chunk x batch) cells — something unstable "
-            f"leaks into the trace and every extra compile is a serving "
-            f"stall")]
-    return []
+    findings = []
+    caches = []                     # alive until the counts are read
+    fused = model.decode_fused
+    if hasattr(fused, "cells"):
+        built0 = fused.cells()
+        with torch.no_grad():
+            for batch in batch_shapes:
+                cache = zero_cache(model, batch, seq, dev)
+                caches.append(cache)
+                tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+                pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+                for k in chunks:
+                    # two calls per cell: the second must find the first's
+                    _, tok, pos, cache = fused(params, tok, pos, cache, k)
+                    _, tok, pos, cache = fused(params, tok, pos, cache, k)
+        findings += _over_budget(model, "decode_fused",
+                                 fused.cells() - built0,
+                                 len(batch_shapes) * len(chunks),
+                                 "chunk x batch")
+    chunk = model.prefill_chunk
+    if hasattr(chunk, "cells"):
+        built0 = chunk.cells()
+        with torch.no_grad():
+            for batch in batch_shapes:
+                cache = zero_cache(model, batch, seq, dev)
+                caches.append(cache)
+                tokens = torch.ones((batch, chunk_t), dtype=torch.long,
+                                    device=dev)
+                qlen = torch.full((batch,), chunk_t, dtype=torch.int32,
+                                  device=dev)
+                for s in (0, chunk_t):
+                    start = torch.full((batch,), s, dtype=torch.int32,
+                                       device=dev)
+                    _, cache = chunk(params, tokens, cache, start, qlen)
+        findings += _over_budget(model, "prefill_chunk",
+                                 chunk.cells() - built0, len(batch_shapes),
+                                 "chunk length x batch")
+    return findings
 
 
 def audit_prefill_chunk(model, params, *, batch: int = 1,
                         seq: int = AUDIT_SEQ, chunk_t: int = PREFILL_CHUNK_T
                         ) -> list:
-    """Findings for one model's ``prefill_chunk`` (none for a family
+    """Findings for one model's ``prefill_chunk`` on a zero cache: the
+    call that builds its cell, then a replay of it (none for a family
     without a chunkable prefill)."""
     if model.prefill_chunk is None:
         return []
@@ -247,10 +276,11 @@ def audit_prefill_chunk(model, params, *, batch: int = 1,
     start = torch.zeros(batch, dtype=torch.int32, device=dev)
     qlen = torch.full((batch,), chunk_t, dtype=torch.int32, device=dev)
     label = f"{model.cfg.name}: prefill_chunk(B={batch}, T={chunk_t})"
+
+    def call():
+        return model.prefill_chunk(params, tokens, cache, start, qlen)
     with torch.no_grad():
-        _, findings = audited_call(
-            lambda: model.prefill_chunk(params, tokens, cache, start, qlen),
-            cache, label)
+        _, findings = audited_call(call, cache, label, build=call)
     return findings
 
 

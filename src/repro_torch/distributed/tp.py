@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 import types
@@ -99,6 +100,24 @@ class Layout:
 
     def count(self, axes: Sequence[str]) -> int:
         return math.prod(self.sizes[a] for a in axes)
+
+    @functools.cached_property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this layout's collectives:
+        every group it uses is NCCL's.  Gloo runs its collectives on the
+        host, which a graph cannot hold."""
+        return all(dist.get_backend(self.group(a)) == "nccl"
+                   for a in self.sizes)
+
+    @functools.cached_property
+    def ident(self) -> tuple:
+        """What a captured body depends on: the mesh, this rank's place on
+        it and the rules' mapping (a graph bakes in the groups it was
+        captured on and the blocks the rank computes)."""
+        return (id(self.mesh), tuple(sorted(self.sizes.items())),
+                tuple(sorted(self.coords.items())),
+                tuple(sorted((k, tuple(v))
+                             for k, v in self.rules.rules.items())))
 
 
 def _axes(entry) -> tuple[str, ...]:

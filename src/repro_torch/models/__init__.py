@@ -20,15 +20,28 @@ Every family module provides::
     cache_logical_axes(cfg), cache_seq_axes(cfg)
 
 On top of those, :class:`Model` exposes the per-slot session helpers and
-``decode_fused``, the serving fast path: a k-step greedy loop over the
-family's single-step ``decode`` with the cache updated in place and the
-argmax on the device.  Where the reference scans ``decode`` inside one jit
-with the cache donated, one executable per (batch, chunk) cell, the port
-captures the loop as one CUDA graph per (batch, chunk) cell and cache
-(:mod:`.graphs`; on the CPU the cell runs the loop eagerly).  The cache
-tensors are written in place, so their ``data_ptr`` never changes across
-calls, and tokens and positions stay on the device until the caller
-copies the ``(B, k)`` block of ids to the host once.
+the three serving entry points the reference jits, each as cells
+(:mod:`.graphs`): one CUDA graph per shape and cache, captured on the
+first call (or ``prepare``) and replayed after, where the reference has
+one executable per shape with the cache donated.  On the CPU a cell runs
+its body eagerly; a cost counter, or a ``tp`` layout over gloo, runs the
+body eagerly everywhere; ``.eager`` is the body itself.
+
+* ``decode_fused``, the serving fast path: a k-step greedy loop over the
+  family's single-step ``decode`` with the cache updated in place and the
+  argmax on the device (a cell per (batch, chunk)); tokens and positions
+  stay on the device until the caller copies the ``(B, k)`` block of ids
+  to the host once;
+* ``prefill_chunk``, for a family with a chunkable prefill (dense): one
+  prompt chunk written into the cache in place (a cell per (batch, chunk
+  length));
+* ``decode_step``, the per-step legacy path (``fused=False``), the
+  counterpart of the reference's ``decode_jit`` (a cell per batch).
+
+``decode`` itself stays the plain function: the sharded path and the
+tests call it.  The cache tensors are written in place, so their
+``data_ptr`` never changes across calls, which is what a cell's key and
+its graph rest on.
 """
 
 from __future__ import annotations
@@ -49,8 +62,10 @@ class Model:
     forward: Callable             # (params, batch) -> logits (B, S, V)
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode: Callable              # (params, token (B,1), pos, cache)
-                                  # -> (logits (B,1,V), cache): one step,
-                                  # the per-step legacy path (fused=False)
+                                  # -> (logits (B,1,V), cache): one step
+    decode_step: Callable         # decode as cells, the per-step legacy
+                                  # path (fused=False); a graphs.StepDecode
+                                  # (.eager is decode)
     decode_fused: Callable        # (params, token (B,1), pos (B,), cache, k)
                                   # -> (tokens (B,k), next_token, pos, cache)
                                   # greedy fast path: cache updated in place,
@@ -64,8 +79,10 @@ class Model:
     prefill_chunk: Callable | None = None
                                   # (params, tokens (B,T), cache, start (B,),
                                   # qlen (B,)) -> (logits (B,1,V), cache):
-                                  # one chunk, cache written in place; None
-                                  # for a family without a chunkable prefill
+                                  # one chunk, cache written in place; a
+                                  # graphs.ChunkPrefill (.eager is the
+                                  # plain call); None for a family without
+                                  # a chunkable prefill
 
 
 _FAMILY = {"dense": transformer, "audio": transformer, "moe": moe,
@@ -111,8 +128,10 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, init=bind(mod.init),
                  forward=bind(mod.forward),
                  prefill=bind(mod.prefill), decode=bind(mod.decode),
+                 decode_step=graphs.StepDecode(bind(mod.decode)),
                  decode_fused=graphs.FusedDecode(_fused_decode(cfg, mod)),
-                 prefill_chunk=bind(mod.prefill_chunk) if chunkable else None,
+                 prefill_chunk=(graphs.ChunkPrefill(bind(mod.prefill_chunk))
+                                if chunkable else None),
                  cache_spec=bind(mod.cache_spec),
                  cache_logical_axes=bind(mod.cache_logical_axes),
                  cache_seq_axes=bind(mod.cache_seq_axes),

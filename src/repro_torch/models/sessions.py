@@ -48,7 +48,10 @@ def extract_session(cache: dict, slot: int, pos: int, logical_axes: dict,
                     seq_axes: dict) -> dict:
     """Slice slot ``slot`` out of ``cache``: batch axis narrowed to
     ``slot:slot+1``, sequence axes trimmed to ``[:pos]`` (the live entries),
-    leaves copied to host numpy.  Raises ``TypeError`` on a leaf that is
+    leaves copied to host numpy: a session never shares memory with the
+    cache (a CPU leaf is cloned first, since ``.numpy()`` would view it),
+    so a cache reused after it, as the engine's working prefill cache is,
+    leaves the session as it was.  Raises ``TypeError`` on a leaf that is
     not floating point: the wire takes a ``uint16`` cache leaf for
     bfloat16 bits, so no cache may hold integers."""
     out = {}
@@ -62,7 +65,10 @@ def extract_session(cache: dict, slot: int, pos: int, logical_axes: dict,
         s_axis = seq_axes[name]
         if s_axis is not None:
             idx[s_axis] = slice(0, pos)
-        out[name] = host_leaf(leaf[tuple(idx)])[1]
+        part = leaf[tuple(idx)]
+        if part.device.type == "cpu":
+            part = part.clone()
+        out[name] = host_leaf(part)[1]
     return out
 
 

@@ -12,11 +12,14 @@ constructor and surface.
 * with ``prefill_chunk_tokens > 0`` a prompt instead prefills in chunks of
   that many tokens through ``Model.prefill_chunk`` (the
   ``ragged_prefill`` kernel on the card), one chunk per ``step`` between
-  decode chunks, in a cache of its own that holds no slot; it takes a slot
-  when done, or, with ``on_prefill_complete`` set (a prefill-role
-  replica), leaves as a :class:`Session` for a decode replica.  An
-  unfinished prefill can leave too (``export_prefill``) and resume its
-  remaining chunks elsewhere;
+  decode chunks, in the engine's one working prefill cache, which holds
+  no slot: the oldest prefill in flight owns it, from a zeroed start (an
+  imported partial prefill's rows written in first).  Done, the prompt
+  takes a slot, or, with ``on_prefill_complete`` set (a prefill-role
+  replica), leaves as a :class:`Session` for a decode replica; its rows
+  leave the working cache before the next prefill takes it (a device
+  clone if no slot is free by then).  An unfinished prefill can leave too
+  (``export_prefill``) and resume its remaining chunks elsewhere;
 * every engine step decodes a **chunk of ``decode_chunk`` tokens** for the
   whole active batch at **per-slot positions** through
   ``Model.decode_fused``: the cache is updated in place, greedy sampling
@@ -24,9 +27,13 @@ constructor and surface.
   between chunks — the only host transfer per step is the ``(B, k)`` block
   of token ids.  A slot that reaches ``max_new`` (or the cache edge)
   mid-chunk keeps only its tokens up to that point.  ``fused=False`` keeps
-  the legacy per-token path (``Model.decode`` + device argmax).  On the
-  card the engine builds ``decode_fused``'s cell (its CUDA graph) for the
-  batch cache as it allocates it, so no decode step carries a capture;
+  the legacy per-token path (``Model.decode_step`` + device argmax).  On
+  the card the engine builds the cell (the CUDA graph,
+  :mod:`repro_torch.models.graphs`) of ``decode_fused`` or
+  ``decode_step`` for the batch cache as it allocates it, and that of
+  ``prefill_chunk`` for the working prefill cache as it allocates that,
+  so no decode step or prefill chunk carries a capture: one cell each an
+  engine, chunk length and layout, built again after a restart;
 * finished sequences free their slots immediately;
 * a live request can leave the engine as a :class:`Session`
   (``export_session``) and resume on another engine (``import_session``),
@@ -98,13 +105,15 @@ class Session:
 
 @dataclasses.dataclass
 class _Prefill:
-    """An in-progress chunked prefill: the request and its own (L, 1,
-    max_seq, ...) device cache, written in place chunk by chunk.  It holds
-    no batch slot, so a long prompt never blocks a decode slot."""
+    """An in-progress chunked prefill: the request and how far it is.  Its
+    rows live in the engine's working prefill cache while it owns it (the
+    oldest in flight), written in place chunk by chunk.  It holds no batch
+    slot, so a long prompt never blocks a decode slot."""
     req: Request
-    cache: dict
     consumed: int = 0            # prompt tokens already in the cache
     t_start: float | None = None  # first chunk's wall time
+    session: dict | None = None  # an imported partial prefill's rows,
+                                 # until it owns the working cache
 
 
 class ServeEngine:
@@ -136,6 +145,8 @@ class ServeEngine:
                                  # (req, next_token, device cache)
         self.active: list[Request | None] = [None] * max_batch
         self.cache = None
+        self._pf_cache = None    # the working prefill cache (1, max_seq)
+        self._pf_owner = None    # the _Prefill whose rows it holds
         self.pos = np.zeros(max_batch, dtype=np.int32)
         self.cur_token = np.zeros((max_batch, 1), dtype=np.int32)
         # device-resident mirrors of cur_token/pos: they ride the decode
@@ -247,6 +258,8 @@ class ServeEngine:
         self._prefill_ready.clear()
         self.active = [None] * self.max_batch
         self.cache = None
+        self._pf_cache = None
+        self._pf_owner = None
         self.pos[:] = 0
         self.cur_token[:] = 0
         self._dev_tok = None
@@ -285,26 +298,81 @@ class ServeEngine:
     def _ensure_cache(self) -> None:
         if self.cache is None:
             self.cache = self._zero_cache(self.max_batch)
-            if self.fused and self.device.type == "cuda":
+            if self.device.type == "cuda":
                 self._prepare_decode()
 
     def _prepare_decode(self) -> None:
-        """Build the decode cell of the new cache (``decode_fused``'s CUDA
-        graph at this batch and chunk, :mod:`repro_torch.models.graphs`)
-        before any slot holds a sequence: at startup and after a restart.
-        A build runs the decode once eagerly and captures it, a few hundred
-        ms, which in the first decode step would reach the PTT and the
-        fleet's detector as this replica's step time.  The eager run
-        decodes every slot at position 0, the throwaway decode an idle
-        slot runs every step; a slot's prefill or imported session
-        overwrites that row and state."""
-        prepare = getattr(self.model.decode_fused, "prepare", None)
+        """Build the decode cell of the new cache (the CUDA graph of
+        ``decode_fused`` at this batch and chunk, or of ``decode_step``
+        with ``fused=False``; :mod:`repro_torch.models.graphs`) before any
+        slot holds a sequence: at startup and after a restart.  A build
+        runs the decode once eagerly and captures it, a few hundred ms,
+        which in the first decode step would reach the PTT and the fleet's
+        detector as this replica's step time.  The eager run decodes every
+        slot at position 0, the throwaway decode an idle slot runs every
+        step; a slot's prefill or imported session overwrites that row and
+        state."""
+        fn = self.model.decode_fused if self.fused else self.model.decode_step
+        prepare = getattr(fn, "prepare", None)
         if prepare is not None:
             tok = torch.zeros((self.max_batch, 1), dtype=torch.long,
                               device=self.device)
             pos = torch.zeros(self.max_batch, dtype=torch.int32,
                               device=self.device)
-            prepare(self.params, tok, pos, self.cache, self.decode_chunk)
+            extra = (self.decode_chunk,) if self.fused else ()
+            prepare(self.params, tok, pos, self.cache, *extra)
+
+    def _chunk_inputs(self, chunk: np.ndarray, start: int, qlen: int):
+        """A chunk's (tokens (1, C), start (1,), qlen (1,)) on the device,
+        as every chunk call and the cell's build take them."""
+        return (torch.from_numpy(chunk).to(self.device),
+                torch.tensor([start], dtype=torch.int32, device=self.device),
+                torch.tensor([qlen], dtype=torch.int32, device=self.device))
+
+    def _ensure_prefill_cache(self) -> dict:
+        """The working prefill cache, allocated on first use (and again
+        after a crash), with its chunk cell built on the card as it is
+        allocated: a warm-up chunk with ``qlen`` 0, which writes no row,
+        then the capture, outside every chunk's PTT sample."""
+        if self._pf_cache is None:
+            self._pf_cache = self._zero_cache(1)
+            prepare = getattr(self.model.prefill_chunk, "prepare", None)
+            if prepare is not None and self.device.type == "cuda":
+                chunk = np.zeros((1, self.prefill_chunk_tokens), np.int64)
+                tokens, start, qlen = self._chunk_inputs(chunk, 0, 0)
+                prepare(self.params, tokens, self._pf_cache, start, qlen)
+        return self._pf_cache
+
+    def _own_prefill_cache(self, pf: _Prefill) -> dict:
+        """Hand the working cache to ``pf``: a finished prefill still
+        waiting in ``_prefill_ready`` on it gets a device clone of its
+        rows, the cache is zeroed (each prefill starts on a zero cache, as
+        the reference's does, so sessions cut from it are byte-identical),
+        and an imported partial prefill's rows are written in."""
+        cache = self._ensure_prefill_cache()
+        if self._pf_owner is not pf:
+            for i, (req, tok, c) in enumerate(self._prefill_ready):
+                if c is cache:
+                    self._prefill_ready[i] = (
+                        req, tok, {n: t.clone() for n, t in c.items()})
+            for t in cache.values():
+                t.zero_()
+            if pf.session is not None:
+                self.model.insert_session(cache, 0, pf.session)
+                pf.session = None
+            self._pf_owner = pf
+        return cache
+
+    def _prefill_rows(self, pf: _Prefill, k: int) -> dict:
+        """A session dict of ``pf``'s first ``k`` rows: off the working
+        cache when ``pf`` owns it, else off a zero cache holding its
+        imported rows, if any (a prefill that has not started)."""
+        if self._pf_owner is pf:
+            return self.model.extract_session(self._pf_cache, 0, k)
+        cache = self._zero_cache(1)
+        if pf.session is not None:
+            self.model.insert_session(cache, 0, pf.session)
+        return self.model.extract_session(cache, 0, k)
 
     def _chunking(self) -> bool:
         """Whether chunked prefill admission is live on this engine."""
@@ -371,8 +439,7 @@ class ServeEngine:
                     break
                 req = self.queue.popleft()
                 req.t_admit = time.perf_counter()
-                self.prefilling.append(
-                    _Prefill(req=req, cache=self._zero_cache(1)))
+                self.prefilling.append(_Prefill(req=req))
                 continue
             if not slots and self.on_prefill_complete is None:
                 break                # whole-prompt path needs a slot unless
@@ -413,6 +480,7 @@ class ServeEngine:
         if not self.prefilling:
             return
         pf = self.prefilling[0]
+        cache = self._own_prefill_cache(pf)
         prompt = np.asarray(pf.req.prompt)  # analysis: allow-host-sync(prompt is host numpy, no device transfer)
         C = self.prefill_chunk_tokens
         qlen = min(C, len(prompt) - pf.consumed)
@@ -422,11 +490,9 @@ class ServeEngine:
         d = self.scheduler.schedule_prefill(qlen)
         chunk = np.zeros((1, C), np.int64)
         chunk[0, :qlen] = prompt[pf.consumed:pf.consumed + qlen]
-        logits, pf.cache = self.model.prefill_chunk(
-            self.params, torch.from_numpy(chunk).to(self.device), pf.cache,
-            torch.tensor([pf.consumed], dtype=torch.int32,
-                         device=self.device),
-            torch.tensor([qlen], dtype=torch.int32, device=self.device))
+        tokens, start, live = self._chunk_inputs(chunk, pf.consumed, qlen)
+        logits, cache = self.model.prefill_chunk(self.params, tokens, cache,
+                                                 start, live)
         pf.consumed += qlen
         done = pf.consumed >= len(prompt)
         # the chunk's one host sync, before the PTT sample: the argmax of
@@ -450,11 +516,14 @@ class ServeEngine:
         if self.on_prefill_latency is not None:
             self.on_prefill_latency(dur)
         if done:
+            # its rows stay in the working cache until they are slotted
+            # (the next step's admission) or the next prefill takes it
             self.prefilling.popleft()
+            self._pf_owner = None
             if self._h_prefill is not None:
                 self._h_prefill.observe(time.perf_counter() - pf.t_start)
-            if not self._complete_prefill(pf.req, next_tok, pf.cache):
-                self._prefill_ready.append((pf.req, next_tok, pf.cache))
+            if not self._complete_prefill(pf.req, next_tok, cache):
+                self._prefill_ready.append((pf.req, next_tok, cache))
 
     def _finish(self, req: Request) -> None:
         """Bookkeep one finished request (counter + optional instant)."""
@@ -500,10 +569,10 @@ class ServeEngine:
             if pf.req.rid == rid:
                 del self.prefilling[i]
                 k = pf.consumed
-                sess = Session(
-                    req=pf.req, pos=k, cur_token=0,
-                    cache=self.model.extract_session(pf.cache, 0, k),
-                    prefilled=k)
+                sess = Session(req=pf.req, pos=k, cur_token=0,
+                               cache=self._prefill_rows(pf, k), prefilled=k)
+                if self._pf_owner is pf:
+                    self._pf_owner = None
                 self._exports += 1
                 if self._m_exports is not None:
                     self._m_exports.inc()
@@ -553,9 +622,9 @@ class ServeEngine:
         self.sessions_in.append(sess)
 
     def _import_partial(self, sess: Session) -> None:
-        """Adopt a mid-prefill session: its cache rows land in a fresh
-        per-request device cache, and the remaining chunks resume from
-        ``sess.prefilled``."""
+        """Adopt a mid-prefill session: its cache rows land in the working
+        prefill cache when it takes it, and the remaining chunks resume
+        from ``sess.prefilled``."""
         if not self._chunking():
             raise ValueError(
                 "partial-prefill session needs a chunked-prefill engine "
@@ -575,9 +644,8 @@ class ServeEngine:
             if tid is not None:
                 self.tracer.instant("migrate-in", tid, self.obs_name,
                                     pos=sess.pos, prefilled=sess.prefilled)
-        cache = self.model.insert_session(self._zero_cache(1), 0, sess.cache)
-        self.prefilling.append(
-            _Prefill(req=sess.req, cache=cache, consumed=sess.prefilled))
+        self.prefilling.append(_Prefill(req=sess.req, consumed=sess.prefilled,
+                                        session=sess.cache))
 
     def export_session_wire(self, rid: int) -> bytes:
         """:meth:`export_session` encoded with the versioned session wire
@@ -608,6 +676,7 @@ class ServeEngine:
         out = list(self.queue) + [pf.req for pf in self.prefilling]
         self.queue.clear()
         self.prefilling.clear()
+        self._pf_owner = None
         return out
 
     def drain_sessions(self) -> list[Session]:
@@ -664,7 +733,7 @@ class ServeEngine:
         else:
             # legacy per-step path: argmax on the device, (B, 1) ids home
             k = 1
-            logits, self.cache = self.model.decode(
+            logits, self.cache = self.model.decode_step(
                 self.params, self._dev_tok, self._dev_pos, self.cache)
             toks_dev = torch.argmax(logits[:, 0], dim=-1)[:, None]
             self._dev_tok = toks_dev

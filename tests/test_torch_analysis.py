@@ -484,3 +484,31 @@ def test_audit_fails_on_a_prefill_that_copies_its_cache(dense):
     bad = dataclasses.replace(model, prefill_chunk=prefill_chunk)
     assert {f.rule for f in A.audit_prefill_chunk(bad, params)} == {
         "moved-cache"}
+
+
+def test_unstable_chunk_key_breaks_the_retrace_budget(dense):
+    """``prefill_chunk``'s cells under the retrace budget: one a batch
+    swept, and a chunk handed a new cache every call (so a new cell every
+    call) flagged, as ``tests/test_torch_decode_graph.py`` flags the
+    decode's."""
+    model, params = dense
+    chunk = model.prefill_chunk
+
+    def unstable(params, tokens, cache, start, qlen):
+        copy = {n: t.clone() for n, t in cache.items()}
+        logits, copy = chunk(params, tokens, copy, start, qlen)
+        for n, t in cache.items():
+            t.copy_(copy[n])
+        return logits, cache
+    unstable.cells = chunk.cells
+    found = A.audit_retrace(dataclasses.replace(model,
+                                                prefill_chunk=unstable),
+                            params)
+    assert [f.rule for f in found] == ["retrace-budget"]
+    assert "prefill_chunk compiled 4 executables across 2" in found[0].message
+    built0 = chunk.cells()
+    assert A.audit_retrace(model, params) == []
+    assert chunk.cells() - built0 == len(A.BATCH_SHAPES)
+    # the plain body has no cells to count: nothing to say
+    eager = dataclasses.replace(model, prefill_chunk=chunk.eager)
+    assert A.audit_retrace(eager, params) == []
