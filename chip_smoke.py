@@ -2,13 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: the quickest proof that the port builds, is right, and serves.
 
-    python3 chip_smoke.py [--seed N] [--only flash_bwd|mesh|graph]
+    python3 chip_smoke.py [--seed N] [--only flash_bwd|mesh|graph|train]
 
 (``--only flash_bwd`` runs the device and build phases and the flash
 backward's cases alone, with a profile of its kernels; ``--only mesh``
 the device, build, serve and mesh phases; ``--only graph`` the device,
 build, serve, chunked and audit phases, every cell of the serving
-entry points without rules; none prints a result line.)
+entry points without rules; ``--only train`` the device, build and train
+phases; none prints a result line.)
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -54,20 +55,30 @@ Phases, in order; any failure exits non-zero before the last line:
              64, vocab 151,936; float32 masters and AdamW state, bf16
              compute), random weights from the seed, through
              ``repro_torch.launch.train``'s ``run`` on SyntheticLMData
-             batches of 8 x 1024: one step, after which every parameter
-             has a finite, nonzero gradient; then 20 steps with finite,
-             falling losses (all printed) and exact launch counts (flash
-             forward two a layer a step, a forward and the recompute of the
-             checkpointed block; the flash backward one a layer a step)
-             and no copy of dO on the way (``dout_copies`` 0);
-             step p50, tokens/s, MFU against 989 TFLOP/s and peak memory;
-             one 2 x 256 batch's loss and gradient norm against the port's
-             own CPU run (float32, plain versions) within stated limits; 5
-             steps, the state through host memory, 5 steps against 10
-             straight, bit for bit; one step each of granite-moe-1b-a400m
-             at full width and mamba2-130m whole (loss finite, every
-             dense, attention and SSM parameter with a finite nonzero
-             gradient);
+             batches of 8 x 1024, its steps on the donated step's cell
+             (``models/graphs.py`` ``TrainGraph``: step 1 runs eagerly
+             and is captured as one CUDA graph, steps 2-20 replay it, the
+             state updated in place): 20 steps with finite, falling
+             losses (all printed) and exact launch counts (flash forward
+             two a layer a step, a forward and the recompute of the
+             checkpointed block; the flash backward one a layer a step),
+             no copy of dO on the way (``dout_copies`` 0) and one cell
+             built; step p50, tokens/s, MFU against 989 TFLOP/s, the
+             capture's time, peak memory allocated and reserved; after
+             step 20 (a replay) every parameter has a finite, nonzero
+             gradient; the same 20 steps run eagerly through
+             ``TrainStep`` from the same seed, their p50 beside the
+             cell's, losses and final state bitwise the cell's; one
+             replayed step profiled (its idle share); one 2 x 256 batch's
+             loss and gradient norm against the port's own CPU run
+             (float32, plain versions) within stated limits; one eager
+             step profiled with the forward and backward and AdamW as
+             ranges; 5 steps on a cell, the state through host memory, 5
+             steps on a new cell against 10 straight, bit for bit; two
+             steps each of granite-moe-1b-a400m at full width and
+             mamba2-130m whole on their cells (losses finite; after the
+             replay every dense, attention and SSM parameter with a
+             finite nonzero gradient);
 5. serve   — qwen2-0.5b at full width, random weights from the seed,
              through ``ServeEngine``: 16 requests with prompts of 64-1024
              tokens and 64 new tokens each, over 8 slots in chunks of 4,
@@ -280,7 +291,9 @@ loop on a twin cache, then both traced: the same kernels, the NCCL
 annotations by kind of the eager trace beside the counter's), one
 qwen2-0.5b 8 x 1024
 train step under rules (loss within 1e-6 relative of the step without
-them, 48 flash and 24 flash-backward launches),
+them, 48 flash and 24 flash-backward launches) and two through the
+launcher's donated step on its cell captured under the layout (both
+losses bitwise the eager step's under rules, launches exact),
 granite-moe-1b-a400m's 8 x 1024 prefill through ``moe_ep`` (2 x 24
 ``all_to_all_single`` calls, 24 flash launches, logits bitwise equal to
 the prefill without rules, both timed with CUDA events),
@@ -296,7 +309,7 @@ chunked phase's, 24 ``ragged_prefill`` launches a chunk and a build),
 mamba2-130m's 8 x 1024 prefill with the SSD on the rank's block of
 heads (logits and caches bitwise), the qwen2 step with
 ``microbatches=2`` and ``compress_dcn`` (loss bitwise the step without
-rules) and ``launch.train.run`` on the mesh with a checkpoint directory
+rules; two steps on its cell under the layout held as above) and ``launch.train.run`` on the mesh with a checkpoint directory
 (the step-4 checkpoint bitwise the run's state; resumed from step 3
 without a mesh, the fourth loss bitwise the mesh run's).  The group is
 destroyed before the next part: two gloo ranks on the one card (gloo
@@ -313,7 +326,7 @@ counter (``distributed/cost.py``) over a real decode chunk and prefill
 of the serve model, its kernel calls equal to the launch counters and
 its FLOPs to a fake-tensor trace of the same steps; the H100 roofline's
 terms for the train step and a decode step beside their measured device
-times; and ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b x
+times (the train step a replay of its cell); and ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b x
 train_4k x single in a subprocess (exit 0, its wall time).
 
 The kernels phase also holds the runtime's kernels and ``stream_scale_add``
@@ -1287,15 +1300,22 @@ def _train_flops(cfg, module) -> float:
 
 def phase_train(torch, seed, card):
     """qwen2-0.5b trained at full width through ``repro_torch.launch.
-    train``'s ``run``: random weights from the seed, SyntheticLMData, global
-    batch 8 x 1024.  One step first, after which every parameter must
-    hold a finite, nonzero gradient; then the main path's 20 steps, with
-    exact launch counts (flash forward: a forward and a recompute a layer;
-    the backward: one a layer), finite and falling losses, step time,
-    tokens/s, MFU and peak memory; a whole-slice check of one 2 x 256
-    batch against the port's own CPU run in float32; a restart check; and
-    one step each of granite-moe-1b-a400m and mamba2-130m.  Returns the
-    main path's launches."""
+    train``'s ``run``, whose steps are the donated step's cell
+    (``models/graphs.py`` ``TrainGraph``: step 1 runs eagerly and is
+    captured, steps 2-20 replay one CUDA graph, the state updated in
+    place): random weights from the seed, SyntheticLMData, global batch 8
+    x 1024.  The main path's 20 steps, with exact launch counts (flash
+    forward: a forward and a recompute a layer; the backward: one a
+    layer), finite and falling losses, step p50, tokens/s, MFU, the
+    capture's time, the cells built and peak memory; then every
+    parameter's gradient, which step 20's replay wrote; the same 20 steps
+    eagerly through ``TrainStep`` from the same seed (losses and final
+    state against the cell's, the eager p50); one replayed step profiled;
+    a whole-slice check of one 2 x 256 batch against the port's own CPU
+    run in float32; one eager step profiled by range; a restart check
+    through the cell; and two steps each of granite-moe-1b-a400m and
+    mamba2-130m through the launcher (gradients after the replay).
+    Returns the main path's launches."""
     import dataclasses
 
     import numpy as np
@@ -1307,8 +1327,9 @@ def phase_train(torch, seed, card):
     from repro_torch.models.convert import (train_state_from_numpy,
                                             train_state_to_numpy)
     from repro_torch.optim import AdamWConfig, global_norm
-    from repro_torch.train import make_train_step, train_state_init
-    from repro_torch.tree import tree_leaves
+    from repro_torch.train import (DonatedStep, make_train_step,
+                                   train_state_init)
+    from repro_torch.tree import tree_items, tree_map
 
     cfg = get_config(TRAIN_ARCH)
     L = cfg.n_layers
@@ -1325,57 +1346,122 @@ def phase_train(torch, seed, card):
         check(fa.dout_copies == 0, f"train {argv[1]}: {fa.dout_copies} "
               f"copies of dO: the model's layout reaches the backward as "
               f"TMA cannot read it")
+        cell = out["step"].cell
+        check(cell.cells() == 1 and cell.capture_ms[0] is not None,
+              f"train {argv[1]}: {cell.cells()} cells built, not one "
+              f"captured")
         return out, got
 
-    # one step: every parameter has a gradient (a cut graph leaves none)
-    one, _ = counted(_train_args(TRAIN_ARCH, seed, 1), 1, L)
-    module = one["step"].module
+    def batch_at(data, i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in data.batch_at(i).items()}
+
+    # the main path: the launcher's steps on the cell
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(_train_args(TRAIN_ARCH, seed, TRAIN_STEPS),
+                            TRAIN_STEPS, L)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    step_fn = out["step"]
+    # the gradients step 20's replay wrote (after a build, the module's
+    # .grad are the capture's buffers, which only a replay fills)
+    module = step_fn.module
     bad = _bad_grads(torch, module)
     check(not bad, f"train: {len(bad)} parameters without a finite nonzero "
-          f"gradient after step 1: {bad[:8]}")
+          f"gradient after step {TRAIN_STEPS} (a replay): {bad[:8]}")
     n_params = sum(p.numel() for p in module.parameters())
     flops = _train_flops(cfg, module)
     print(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
           f"{cfg.vocab}: {n_params} parameters, float32 masters and AdamW "
-          f"state, {cfg.compute_dtype} compute; after step 1 all "
-          f"{len(list(module.parameters()))} parameter tensors have a "
-          f"finite nonzero gradient; loss {one['losses'][0]:.4f}")
-    del one, module
-
-    # the main path
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out, launches = counted(_train_args(TRAIN_ARCH, seed, TRAIN_STEPS),
-                            TRAIN_STEPS, L)
-    peak = torch.cuda.max_memory_allocated()
+          f"state, {cfg.compute_dtype} compute; after step {TRAIN_STEPS} (a "
+          f"replay of the cell) all {len(list(module.parameters()))} "
+          f"parameter tensors have a finite nonzero gradient")
+    del module
     losses = out["losses"]
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]) and
           losses[-1] < losses[0], f"train: the loss does not fall: {losses}")
-    steady = sorted(out["step_s"][1:])          # the first step warms up
+    steady = sorted(out["step_s"][1:])          # step 1 builds the cell
     p50 = steady[len(steady) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"[train] losses: {[round(x, 4) for x in losses]}")
-    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
-          f"step p50 {p50 * 1e3:.2f} ms (steps 2-{TRAIN_STEPS}, min "
-          f"{steady[0] * 1e3:.2f}, max {steady[-1] * 1e3:.2f}), "
-          f"{tokens / p50:.0f} tokens/s, MFU {flops / p50 / PEAK_BF16:.4f} "
-          f"({flops / 1e12:.2f} model TFLOP a step over {PEAK_BF16:.3g} "
-          f"FLOP/s), peak memory {peak} bytes; launches {launches[0]} flash "
-          f"forward ({2 * L} a step: forward and recompute), {launches[1]} "
-          f"flash backward ({L} a step), {fa.dout_copies} dO copies ({card})")
-    del out
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} on "
+          f"the train cell: step p50 {p50 * 1e3:.2f} ms (steps "
+          f"2-{TRAIN_STEPS}, replays; min {steady[0] * 1e3:.2f}, max "
+          f"{steady[-1] * 1e3:.2f}), {tokens / p50:.0f} tokens/s, MFU "
+          f"{flops / p50 / PEAK_BF16:.4f} ({flops / 1e12:.2f} model TFLOP a "
+          f"step over {PEAK_BF16:.3g} FLOP/s); step 1 (the eager run and "
+          f"the capture) {out['step_s'][0] * 1e3:.1f} ms, capture "
+          f"{step_fn.cell.capture_ms[0]:.1f} ms, cells built "
+          f"{step_fn.cell.cells()}; peak memory {peak} bytes allocated, "
+          f"{reserved} reserved; launches {launches[0]} flash forward "
+          f"({2 * L} a step: forward and recompute), {launches[1]} flash "
+          f"backward ({L} a step), {fa.dout_copies} dO copies ({card})")
 
-    # the whole slice against the port's CPU run, same masters and batch
-    model = get_model(cfg)
-    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=2 * TRAIN_RESTART)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    s0 = train_state_init(model, gen, opt, device="cuda")
+    # one replayed step, traced; then the cell's state to host memory and
+    # the cell dropped, whose pool goes back to the allocator
     data = SyntheticLMData(DataConfig(vocab=cfg.vocab,
                                       global_batch=TRAIN_BATCH,
                                       seq_len=TRAIN_SEQ, seed=seed))
+    cell_state = train_state_to_numpy(out["state"])
+    batch = batch_at(data, TRAIN_STEPS)
+    n0 = (fa.launches, fa.bwd_launches)
+    prof = _profile_window(torch, lambda: step_fn(out["state"], batch),
+                           f"one replayed train step, {cfg.name}, "
+                           f"{TRAIN_BATCH} x {TRAIN_SEQ}", card, top=16)
+    fa.launches, fa.bwd_launches = n0
+    check(step_fn.cell.cells() == 1, "train: the profiled step built a cell")
+    if prof is not None:
+        print(f"[train] replayed step: wall {prof['wall'] * 1e3:.3f} ms, "
+              f"device busy {prof['busy'] * 1e3:.3f} ms, idle share "
+              f"{1 - prof['busy'] / prof['wall']:.3f} ({card})")
+    del out, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # the same steps eagerly: TrainStep from the same seed, AdamW config
+    # and batches as the launcher's
+    model = get_model(cfg)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=max(5, TRAIN_STEPS // 20),
+                      total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = train_state_init(model, gen, opt, device="cuda")
+    eager = make_train_step(model, opt)
+    e_losses, e_s = [], []
+    n0 = (fa.launches, fa.bwd_launches)
+    for i in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        state, m = eager(state, batch_at(data, i))
+        e_losses.append(float(m["loss"]))
+        e_s.append(time.perf_counter() - ts)
+    fa.launches, fa.bwd_launches = n0           # checks do not count
+    e_steady = sorted(e_s[1:])
+    e_p50 = e_steady[len(e_steady) // 2]
+    cell_state = train_state_from_numpy(cell_state, "cuda")
+    pairs = [(a, b) for (_, a), (_, b) in zip(tree_items(cell_state),
+                                              tree_items(state))]
+    # the replays run the eager step's kernels on the same operands, the
+    # in-place AdamW is bitwise the functional one: the runs are equal
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    worst = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, e_losses))
+    print(f"[train] the same {TRAIN_STEPS} steps eagerly (TrainStep, a new "
+          f"state each step): step p50 {e_p50 * 1e3:.2f} ms (steps "
+          f"2-{TRAIN_STEPS}; the cell's {p50 * 1e3:.2f}); losses "
+          f"{'bitwise equal' if losses == e_losses else 'differ'} (largest "
+          f"relative difference {d_loss:.3g}); final state: "
+          f"{len(pairs) - differ} of {len(pairs)} leaves bitwise equal, max "
+          f"abs difference {worst} ({card})")
+    check(losses == e_losses and not differ,
+          "train: the cell's run is not bitwise the eager run")
+    del state, cell_state, eager, pairs
+    torch.cuda.empty_cache()
+
+    # the whole slice against the port's CPU run, same masters and batch
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=2 * TRAIN_RESTART)
+    gen.manual_seed(seed)
+    s0 = train_state_init(model, gen, opt, device="cuda")
     rows, toks = SLICE_BATCH
     small = {k: torch.from_numpy(v[:rows, :toks])
              for k, v in data.batch_at(0).items()}
@@ -1406,14 +1492,13 @@ def phase_train(torch, seed, card):
     check(d_loss <= SLICE_LOSS_REL and d_gn <= SLICE_GNORM_REL,
           "train: the card's loss or gradient norm is off the CPU run's")
 
-    # one step profiled after a warm one: the forward and backward, and
-    # AdamW, as ranges
+    # one eager step profiled after a warm one: the forward and backward,
+    # and AdamW, as ranges
     from torch.profiler import record_function
     from repro_torch.optim import adamw_update
     n0 = (fa.launches, fa.bwd_launches)
     prof_step = make_train_step(model, opt)
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in data.batch_at(0).items()}
+    batch = batch_at(data, 0)
     prof_step(s0, batch)
 
     def profiled():
@@ -1421,67 +1506,73 @@ def phase_train(torch, seed, card):
             _, grads = prof_step.value_and_grad(s0["params"], batch)
         with record_function("train.adamw"):
             adamw_update(opt, grads, s0["opt"], s0["params"])
-    _profile_window(torch, profiled, f"one train step, {cfg.name}, "
+    _profile_window(torch, profiled, f"one eager train step, {cfg.name}, "
                     f"{TRAIN_BATCH} x {TRAIN_SEQ}", card, top=16,
                     ranges=("train.forward_backward", "train.adamw"))
     fa.launches, fa.bwd_launches = n0
     del prof_step, batch
     torch.cuda.empty_cache()
 
-    # restart: TRAIN_RESTART steps, the state through host memory (the
-    # checkpointer's own leaf conversion; its zlib pass over the 5.9 GB
-    # state would take minutes on the card's host, and the files are the
-    # CPU tests'), TRAIN_RESTART more, against the straight run
+    # restart: TRAIN_RESTART steps on the cell, the state through host
+    # memory (the checkpointer's own leaf conversion; its zlib pass over
+    # the 5.9 GB state would take minutes on the card's host, and the
+    # files are the CPU tests'), TRAIN_RESTART more on a new cell, against
+    # the straight run's cell; each run donates a copy of s0
     def steps(state, lo, hi):
-        step = make_train_step(model, opt)
+        step = DonatedStep(make_train_step(model, opt))
         for i in range(lo, hi):
-            batch = {k: torch.from_numpy(v).cuda()
-                     for k, v in data.batch_at(i).items()}
-            state, _ = step(state, batch)
+            state, _ = step(state, batch_at(data, i))
         return state
 
     n0 = (fa.launches, fa.bwd_launches)
-    straight = steps(s0, 0, 2 * TRAIN_RESTART)
-    half = train_state_to_numpy(steps(s0, 0, TRAIN_RESTART))
+    fresh = lambda: tree_map(lambda t: t.clone(), s0)
+    straight = steps(fresh(), 0, 2 * TRAIN_RESTART)
+    half = train_state_to_numpy(steps(fresh(), 0, TRAIN_RESTART))
     resumed = steps(train_state_from_numpy(half, "cuda"), TRAIN_RESTART,
                     2 * TRAIN_RESTART)
     fa.launches, fa.bwd_launches = n0
     data.close()
-    pairs = list(zip(tree_leaves(straight), tree_leaves(resumed)))
-    differ = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    pairs = [(a, b) for (_, a), (_, b) in zip(tree_items(straight),
+                                              tree_items(resumed))]
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
     worst = max(((a.float() - b.float()).abs().max().item()
                  for a, b in pairs), default=0.0)
-    print(f"[train] restart: {TRAIN_RESTART} steps, state to host and "
-          f"back, {TRAIN_RESTART} steps vs {2 * TRAIN_RESTART} straight: "
-          f"{len(pairs) - len(differ)} of {len(pairs)} leaves bitwise "
+    print(f"[train] restart on the cell: {TRAIN_RESTART} steps, state to "
+          f"host and back, {TRAIN_RESTART} steps vs {2 * TRAIN_RESTART} "
+          f"straight: {len(pairs) - differ} of {len(pairs)} leaves bitwise "
           f"equal, max abs difference {worst}")
-    check(not differ, f"train: restart differs in {len(differ)} leaves "
+    check(not differ, f"train: restart differs in {differ} leaves "
           f"(max abs {worst})")
-    del straight, resumed, half, s0, model
+    del straight, resumed, half, s0, model, pairs
     torch.cuda.empty_cache()
 
-    # one step each of the MoE and SSM families
+    # two steps each of the MoE and SSM families: the cell's build, then a
+    # replay, whose gradients are checked
     for arch, layers, skip in (
             ("granite-moe-1b-a400m", 24, lambda n: ".moe.w_" in n),
             ("mamba2-130m", 0, lambda n: False)):
         torch.cuda.reset_peak_memory_stats()
-        one, got = counted(_train_args(arch, seed, 1), 1, layers)
-        module = one["step"].module
-        check(math.isfinite(one["losses"][0]), f"train {arch}: loss "
-              f"{one['losses'][0]}")
+        two, got = counted(_train_args(arch, seed, 2), 2, layers)
+        module = two["step"].module
+        check(all(math.isfinite(x) for x in two["losses"]),
+              f"train {arch}: losses {two['losses']}")
         bad = _bad_grads(torch, module, skip)
         check(not bad, f"train {arch}: no finite nonzero gradient in "
               f"{bad[:8]}")
         idle = [n for n, p in module.named_parameters()
                 if skip(n) and not bool((p.grad != 0).any())]
-        print(f"[train] {arch} at full width, one step of {TRAIN_BATCH} x "
-              f"{TRAIN_SEQ}: loss {one['losses'][0]:.4f}, "
-              f"{one['step_s'][0] * 1e3:.1f} ms, every parameter's gradient "
-              f"finite and every dense and attention one nonzero "
-              f"({len(idle)} expert tensors with a zero gradient); flash "
-              f"launches {got}; peak memory "
-              f"{torch.cuda.max_memory_allocated()} bytes ({card})")
-        del one, module
+        print(f"[train] {arch} at full width, two steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} on the cell: losses "
+              f"{[round(x, 4) for x in two['losses']]}, step 1 (the build) "
+              f"{two['step_s'][0] * 1e3:.1f} ms, capture "
+              f"{two['step'].cell.capture_ms[0]:.1f} ms, step 2 (a replay) "
+              f"{two['step_s'][1] * 1e3:.1f} ms; after the replay every "
+              f"parameter's gradient finite and every dense and attention "
+              f"one nonzero ({len(idle)} expert tensors with a zero "
+              f"gradient); flash launches {got}; peak memory "
+              f"{torch.cuda.max_memory_allocated()} bytes allocated, "
+              f"{torch.cuda.max_memory_reserved()} reserved ({card})")
+        del two, module
         torch.cuda.empty_cache()
     return {"flash_attention": launches[0],
             "flash_attention_bwd": launches[1]}
@@ -4070,17 +4161,67 @@ def _train_under_rules(torch, tm, opt, s0, batch, mesh, loss_free, card):
           f"{n[1]} flash backward; collectives by kind "
           f"{c.totals.coll_counts} ({card})")
     del local, got
+    _train_cell_under_rules(torch, tm, opt, s0, batch, mesh, card)
     return c.totals, c.peak_bytes
 
 
+def _train_cell_under_rules(torch, tm, opt, state, batch, mesh, card, **kw):
+    """Two qwen2-0.5b 8 x 1024 steps of the launcher's donated step under
+    rules on the one-rank NCCL mesh, through its cell (the first its
+    build: the eager run, then the capture with the step's collectives;
+    the second a replay), against two steps of the eager ``TrainStep``
+    under rules from the same state: both losses bitwise; launches exact,
+    one cell built.  ``kw``:
+    the step's options (microbatches, ``compress_dcn``)."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train import DonatedStep, make_train_step
+    from repro_torch.train.step import local_train_state
+    from repro_torch.tree import tree_map
+    L, mb = tm.cfg.n_layers, kw.get("microbatches", 1)
+    n0 = (fa.launches, fa.bwd_launches)
+    with use_rules(mesh):
+        eager, want = make_train_step(tm, opt, **kw), []
+        s = local_train_state(tm, state)
+        for _ in range(2):
+            s, m = eager(s, batch)
+            want.append(float(m["loss"]))
+        del s
+        step = DonatedStep(make_train_step(tm, opt, **kw))
+        s = tree_map(lambda t: t.clone(), local_train_state(tm, state))
+        fa.launches = fa.bwd_launches = 0
+        got = []
+        for _ in range(2):
+            s, m = step(s, batch)
+            got.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        n = (fa.launches, fa.bwd_launches)
+    fa.launches, fa.bwd_launches = n0
+    built, caps = step.cell.cells(), step.cell.capture_ms
+    del s, step                     # the cell and its pool go
+    torch.cuda.empty_cache()
+    label = f"train cell under rules{' with ' + str(kw) if kw else ''}"
+    check(got == want, f"{label}: losses {got} against the eager step's "
+          f"{want}")
+    check(n == (4 * L * mb, 2 * L * mb), f"{label}: launches {n} != "
+          f"{(4 * L * mb, 2 * L * mb)}")
+    check(built == 1 and caps[0] is not None,
+          f"{label}: {built} cells built, not one captured")
+    print(f"[mesh] {tm.cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} {label}: two "
+          f"steps on the cell captured under the NCCL layout (capture "
+          f"{caps[0]:.1f} ms): losses {got!r}, bitwise the eager step's; "
+          f"launches {n[0]} flash, {n[1]} flash backward ({card})")
+
+
 def _train_step_times(torch, tm, opt, batch, seed, card):
-    """(device busy ms, wall ms) of one qwen2-0.5b step without rules,
-    the second of two, under the profiler."""
-    from repro_torch.train import make_train_step, train_state_init
+    """(device busy ms, wall ms) of one qwen2-0.5b step without rules on
+    the launcher's cell, its first replay, under the profiler."""
+    from repro_torch.train import (DonatedStep, make_train_step,
+                                   train_state_init)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     state = train_state_init(tm, gen, opt, device="cuda")
-    step = make_train_step(tm, opt)
+    step = DonatedStep(make_train_step(tm, opt))
     state, _ = step(state, batch)
     prof = _profile_window(torch, lambda: step(state, batch),
                            "train step 8 x 1024 (roofline)", card, top=0)
@@ -4362,7 +4503,6 @@ def _train_options_under_rules(torch, tm, opt, s0, batch, mesh, card):
     loss_free = float(make_train_step(tm, opt, **kw)(state, batch)[1]["loss"])
     with use_rules(mesh):
         local = local_train_state(tm, state)
-        del state
         m = make_train_step(tm, opt, **kw)(local, batch)[1]
         loss = float(m["loss"])
     torch.cuda.synchronize()
@@ -4374,6 +4514,7 @@ def _train_options_under_rules(torch, tm, opt, s0, batch, mesh, card):
           f"{loss!r}, bitwise the step without rules; grad norm "
           f"{float(m['grad_norm']):.6g} ({card})")
     del local
+    _train_cell_under_rules(torch, tm, opt, state, batch, mesh, card, **kw)
 
 
 def _checkpoint_from_mesh(torch, card, mesh):
@@ -5009,13 +5150,15 @@ def phase_profile(torch, np, model, params, reqs, card, how,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("flash_bwd", "mesh", "graph"),
+    ap.add_argument("--only", choices=("flash_bwd", "mesh", "graph",
+                                       "train"),
                     help="run the device and build phases and this part "
                          "alone (mesh: after the serve phase that builds "
                          "its model; graph: the serve phase, graph against "
                          "eager loop and the legacy step cell, the chunked "
                          "phase, chunk cell against eager chunk, and the "
-                         "audit), and print no result line")
+                         "audit; train: the train phase), and print no "
+                         "result line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
@@ -5040,6 +5183,11 @@ def main() -> int:
               f"{_build.build().name} in {time.perf_counter() - t0:.2f} s")
         if args.only == "flash_bwd":
             phase_flash_bwd(torch, args.seed, peaks, card)
+            return 0
+        if args.only == "train":
+            phase_train(torch, args.seed, card)
+            print(f"[smoke] --only train passed in "
+                  f"{time.perf_counter() - t_start:.1f} s ({card})")
             return 0
         if args.only == "graph":
             _, model, params, reqs = phase_serve(torch, args.seed, card)

@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..models import get_model
 from ..optim.adamw import AdamWConfig
 from ..distributed.sharding import use_rules
-from ..train.step import (local_train_state, make_train_step,
+from ..train.step import (DonatedStep, local_train_state, make_train_step,
                           train_state_init, whole_train_state)
 
 
@@ -48,7 +48,14 @@ def _normal(shape, seed: int, device) -> torch.Tensor:
 def run(argv=None, mesh=None) -> dict:
     """Parse ``argv``, train, and return ``{"final_loss", "losses",
     "step_s" (each step's wall seconds, the loss read back), "state",
-    "step" (the :class:`~repro_torch.train.step.TrainStep`)}``.  With
+    "step" (the :class:`~repro_torch.train.step.DonatedStep`)}``.  The
+    steps run through the donated step's cell, the state updated in
+    place (the reference's ``jax.jit(..., donate_argnums=0)``): on the
+    card the first step is the cell's build, the step run eagerly and
+    then captured, so ``step_s[0]`` holds the capture too, and every later
+    step replays the graph; with ``--device cpu`` every step runs eagerly
+    over the cell's buffers.  A resumed or re-meshed state is new
+    tensors, so its first step builds a new cell.  With
     ``mesh`` (a ``DeviceMesh`` over a process group the caller started,
     every rank calling ``run``), the steps run under its rules: the
     state is each rank's block (``train.step.local_train_state``), the
@@ -99,9 +106,9 @@ def _run(argv, mesh) -> dict:
     gen.manual_seed(args.seed)
     state = train_state_init(model, gen, opt_cfg,
                              compress_dcn=args.compress_dcn, device=device)
-    step_fn = make_train_step(model, opt_cfg,
-                              microbatches=args.microbatches,
-                              compress_dcn=args.compress_dcn)
+    step_fn = DonatedStep(make_train_step(model, opt_cfg,
+                                          microbatches=args.microbatches,
+                                          compress_dcn=args.compress_dcn))
 
     start_step = 0
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -158,7 +165,9 @@ def _run(argv, mesh) -> dict:
 def _save(ckpt: AsyncCheckpointer, step: int, model, state, mesh) -> None:
     """``state`` into ``ckpt`` at ``step``; from a mesh the whole state,
     every rank gathering, rank 0 writing (its snapshot taken before the
-    others go on)."""
+    others go on).  ``save`` copies every leaf to host memory before it
+    returns, so the steps after it, which update ``state`` in place, do
+    not reach the files."""
     extra = {"data": {"step": step}}
     if mesh is None:
         ckpt.save(step, state, extra=extra)

@@ -1,7 +1,7 @@
-"""The serving entry points as cells: a body over one shape and one cache,
+"""The jitted entry points as cells: a body over one shape and one cache,
 captured once as a CUDA graph and replayed after.  The counterpart of the
 reference's jitted entry points, one executable per shape with the cache
-donated (``repro/models/__init__.py``):
+donated (``repro/models/__init__.py``, ``repro/launch/train.py``):
 
 * :class:`FusedDecode`, ``Model.decode_fused``: the k-step greedy decode,
   a cell per (batch, chunk) shape and cache;
@@ -9,16 +9,29 @@ donated (``repro/models/__init__.py``):
   per (batch, chunk length) shape and cache;
 * :class:`StepDecode`, ``Model.decode_step``: one decode step, the
   per-step legacy path's (the reference's ``decode_jit``), a cell per
-  batch and cache.
+  batch and cache;
+* :class:`TrainGraph`, the launcher's train step
+  (:class:`repro_torch.train.step.DonatedStep`, the reference's
+  ``jax.jit(make_train_step(...), donate_argnums=0)``): a cell per batch
+  shape and training state, the state (params, AdamW's moments and step,
+  the error-feedback residual) the cache, updated in place.
 
 Each is a :class:`Graphed`, which names the body's static inputs (the
 tensors copied into a cell's buffers each call) and its cache; every
-other argument but the params is static and part of the key (``k``).  The
-body returns its outputs and then the cache.
+other argument but the first (the params; the train step's
+``TrainStep``) is static and part of the key (``k``).  The body returns
+its outputs and then the cache.  The outputs are the cell's own buffers,
+written by each replay and cloned out: the logits and tokens of the
+serving cells, the train step's loss, gradient norm and learning rate.
+So are the buffers a capture allocated and a caller can still reach:
+after a train cell's build its ``TrainStep.module``'s ``.grad`` tensors
+are the capture's, which the capture wrote nothing into and each replay
+of that cell writes.
 
 A cell is keyed by the static inputs' shapes and dtypes, the static
 arguments, the device, the identity of the params, every cache leaf's
-name, ``data_ptr``, shape and dtype, and the active ``tp`` layout's
+path (nested dicts' keys joined by ``/``; a flat cache's leaf names),
+``data_ptr``, shape and dtype, and the active ``tp`` layout's
 identity (:attr:`~repro_torch.distributed.tp.Layout.ident`; None without
 one): one ``Model`` serves many engines, each with its own cache, a graph
 reads the tensors at the addresses it was captured on, and a graph
@@ -37,10 +50,14 @@ is the call's result, and it is the warm-up capture needs: the kernels'
 build, each ``.cu``'s ``cudaFuncSetAttribute``, cuBLAS's workspaces and,
 under a layout, NCCL's communicators happen in it.  The call then
 captures the body over the same buffers and the live cache with
-``torch.cuda.CUDAGraph``, into one memory pool that every cell shares
-(the outputs a body allocates, and the collectives' outputs, come from
-it).  Capture runs nothing, so the cache advances once, in the eager run:
-an SSM's or a hybrid's ``copy_`` into its state is not repeated, and no
+``torch.cuda.CUDAGraph``, into one memory pool that every serving cell
+shares (the outputs a body allocates, and the collectives' outputs, come
+from it).  That pool is never released, so a train cell, whose capture
+holds a step's activations and gradients (tens of GB at full width),
+captures into a pool of its own, which goes back to the allocator once
+the cell is dropped (``SHARED_POOL``).  Capture runs nothing, so the
+cache advances once, in the eager run: an SSM's or a hybrid's ``copy_``
+into its state is not repeated, nor a train step's update, and no
 scratch copy of the cache is needed.  Every later call copies the inputs
 in, replays the graph on the current stream and returns clones of the
 static outputs, so no call overwrites what an earlier one returned.  The
@@ -87,6 +104,7 @@ import torch
 
 from ..distributed import tp
 from ..kernels import _priced, counters
+from ..tree import tree_items
 
 # device index -> (pool, the graph that holds it): a graph pool lives while
 # a graph captured into it does, and capturing into a pool whose graphs
@@ -115,7 +133,8 @@ def _no_graph_dies():
 
 
 def _pool(index: int):
-    """The memory pool every cell on card ``index`` captures into."""
+    """The memory pool every serving cell on card ``index`` captures
+    into."""
     if index not in _pools:
         pool = torch.cuda.graph_pool_handle()
         holder = torch.cuda.CUDAGraph()
@@ -157,6 +176,7 @@ class Graphed:
     nothing)."""
     INPUTS: tuple[int, ...] = ()
     CACHE: int = 0
+    SHARED_POOL = True         # capture into the card's shared pool
 
     def __init__(self, eager: Callable):
         self.eager = eager
@@ -182,7 +202,7 @@ class Graphed:
         outside the body, since capture cannot hold a host-to-device copy
         of pageable memory."""
         cache = args[self.CACHE]
-        dev = next(iter(cache.values())).device
+        dev = tree_items(cache)[0][1].device
         inputs = tuple(a if isinstance(a, torch.Tensor)
                        else torch.as_tensor(a, device=dev)
                        for a in (args[i] for i in self.INPUTS))
@@ -195,7 +215,7 @@ class Graphed:
         return (tuple((tuple(t.shape), t.dtype) for t in inputs), statics,
                 str(inputs[0].device), id(params),
                 tuple((n, t.data_ptr(), tuple(t.shape), t.dtype)
-                      for n, t in cache.items()),
+                      for n, t in tree_items(cache)),
                 None if lay is None else lay.ident)
 
     def prepare(self, *args) -> None:
@@ -253,8 +273,8 @@ class Graphed:
             self.capture_ms.append(None)
         self._cells[key] = cell
         lay = tp.layout()
-        held = (params, *cache.values(), *(() if lay is None else
-                                           (lay.mesh,)))
+        held = (params, *(t for _, t in tree_items(cache)),
+                *(() if lay is None else (lay.mesh,)))
         cell.finalizers = [weakref.finalize(t, self._drop, key)
                            for t in held]
         return first
@@ -273,7 +293,8 @@ class Graphed:
         t0 = time.perf_counter()
         # "thread_local": another thread's CUDA calls (NCCL's watchdog, the
         # runtime's workers) cannot spoil this thread's capture
-        with _no_graph_dies(), torch.cuda.graph(graph, pool=_pool(index), capture_error_mode="thread_local"):  # analysis: allow-host-sync(entering capture synchronizes the device, once per cell)
+        pool = _pool(index) if self.SHARED_POOL else None
+        with _no_graph_dies(), torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):  # analysis: allow-host-sync(entering capture synchronizes the device, once per cell)
             cell.out = self._body(params, cell, cache)
         self.capture_ms.append(1e3 * (time.perf_counter() - t0))
         cell.launches = counters.since(before)
@@ -309,3 +330,25 @@ class StepDecode(Graphed):
     cache)``: a cell per batch and cache; ``eager`` is the family's
     ``decode``."""
     INPUTS, CACHE = (1, 2), 3
+
+
+class TrainGraph(Graphed):
+    """``(step, *batch, state) -> (loss, grad norm, lr, state)``: the
+    donated train step over the batch's tensors in a fixed order
+    (``tokens`` or ``frames``, ``labels``, then ``image_embeds`` for the
+    vlm), a cell per batch shape and state; ``eager`` runs
+    :meth:`~repro_torch.train.step.TrainStep.update_`, which writes the new
+    state into the state's own tensors and turns autograd on for its
+    forward and backward itself (a call runs under ``no_grad``; autograd
+    records inside the capture, the backward's kernels on the capture
+    stream).  ``step``, the ``TrainStep``, stands where the serving cells'
+    params do: a graph reads its compute copy of the parameters at the
+    addresses it was captured on.  Nothing calls ``prepare``, whose eager
+    run would train a step: a cell's build is the real first step.  A
+    cell captures into a pool of its own (module docstring)."""
+    SHARED_POOL = False
+
+    def __init__(self, eager: Callable, n_inputs: int):
+        super().__init__(eager)
+        self.INPUTS = tuple(range(1, 1 + n_inputs))
+        self.CACHE = 1 + n_inputs

@@ -77,10 +77,14 @@ def remat(fn, *args):
     the block's inputs are kept, and its forward runs again in the
     backward, under the activation layout (``distributed.tp.acting``) of
     its first run.  ``fn`` must be a module-level function of its
-    arguments alone, since it is called again later."""
+    arguments alone, since it is called again later.  The generator's
+    state is not stashed: no op of a block draws random numbers, so the
+    recompute is exact without it, and a captured train step
+    (``models/graphs.py``) may not read or set the CUDA generator."""
     if torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
-            _acting, tp.activation(), fn, *args, use_reentrant=False)
+            _acting, tp.activation(), fn, *args, use_reentrant=False,
+            preserve_rng_state=False)
     return fn(*args)
 
 

@@ -59,6 +59,21 @@ def ef_compress_grads(grads, residual, absmax=None):
     return tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out)
 
 
+def ef_compress_grads_(grads, residual, absmax=None):
+    """:func:`ef_compress_grads` with the new residual written into
+    ``residual``'s own tensors (the reference launcher's donated state):
+    returns the compressed then decompressed gradients, bitwise the
+    functional ones."""
+    def one(g, r, f=None):
+        x = g.float() + r
+        deq = dequantize(*quantize(x, f))
+        torch.sub(x, deq, out=r)
+        return deq.to(g.dtype)
+
+    return tree_map(one, grads, residual, *(() if absmax is None
+                                           else (absmax,)))
+
+
 def compressed_allreduce_demo(x: torch.Tensor, mesh) -> torch.Tensor:
     """Hierarchical compressed mean over a ``(pod, data)`` mesh, run by
     every rank of it.

@@ -1,6 +1,7 @@
 from .losses import cross_entropy
-from .step import (TrainState, TrainStep, make_eval_step, make_train_step,
-                   train_state_init, train_state_specs)
+from .step import (DonatedStep, TrainState, TrainStep, make_eval_step,
+                   make_train_step, train_state_init, train_state_specs)
 
-__all__ = ["TrainState", "TrainStep", "make_eval_step", "make_train_step",
-           "train_state_init", "train_state_specs", "cross_entropy"]
+__all__ = ["DonatedStep", "TrainState", "TrainStep", "make_eval_step",
+           "make_train_step", "train_state_init", "train_state_specs",
+           "cross_entropy"]

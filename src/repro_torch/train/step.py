@@ -23,10 +23,19 @@ tree in float32: the gradient of the float32 master is the cast of the
 compute copy's, as the reference's autodiff through ``astype`` gives.
 Randomness for parameter init comes from an explicit ``torch.Generator``
 (or from a JAX state carried across), never from torch's global RNG.
+
+:class:`TrainStep` is functional, as the reference's step: each call
+returns a new state.  :class:`DonatedStep`, the launcher's, is the
+reference launcher's ``jax.jit(make_train_step(...), donate_argnums=0)``:
+:meth:`TrainStep.update_` writes the new state into the given state's
+own tensors, bitwise what ``TrainStep`` returns, through a
+:class:`~repro_torch.models.graphs.TrainGraph` cell (one CUDA graph a
+batch shape and state on the card).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -36,9 +45,11 @@ from ..configs.base import ModelConfig, torch_dtype
 from ..distributed import tp
 from ..models import Model
 from ..models import convert
+from ..models import graphs
 from ..models import layers as L
-from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
-from ..optim.compression import ef_compress_grads, ef_init
+from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                           adamw_update_)
+from ..optim.compression import ef_compress_grads, ef_compress_grads_, ef_init
 from ..tree import tree_leaves, tree_map
 from .losses import cross_entropy
 
@@ -196,12 +207,13 @@ class _Compute:
 
 class TrainStep:
     """``step(state, batch) -> (new state, metrics)``, what the reference's
-    ``make_train_step`` returns (the launcher jits it there; here each call
-    runs eagerly).  ``batch``: ``tokens`` and ``labels`` (B, S) on the
-    parameters' device, ``frames`` (B, S, D) in place of ``tokens`` for the
-    audio family, ``image_embeds`` (B, n_img, D) besides for the vlm.
-    :attr:`module` is the compute copy; its parameters keep the last
-    backward's gradients until the next step."""
+    ``make_train_step`` returns, run eagerly; the launcher runs its
+    donated form through a cell (:class:`DonatedStep`).  ``batch``:
+    ``tokens`` and ``labels`` (B, S) on the parameters' device, ``frames``
+    (B, S, D) in place of ``tokens`` for the audio family,
+    ``image_embeds`` (B, n_img, D) besides for the vlm.  :attr:`module` is
+    the compute copy; its parameters keep the last backward's gradients
+    until the next step."""
 
     def __init__(self, model: Model, opt_cfg: AdamWConfig,
                  microbatches: int = 1, compress_dcn: bool = False):
@@ -242,33 +254,103 @@ class TrainStep:
             loss = tp.reduce(loss.detach(), tuple(lay.sizes))
         return loss.detach(), grads
 
-    def __call__(self, state: TrainState, batch):
-        params = state["params"]
+    def _loss_and_grads(self, params, batch):
+        """:meth:`value_and_grad` over the whole batch, or over its
+        microbatches with the gradients summed in float32, then means."""
         mb = self.microbatches
         if mb <= 1:
-            loss, grads = self.value_and_grad(params, batch)
-        else:
-            # the batch's rows in microbatches; gradients summed in f32
-            gsum = loss_sum = None
-            for part in _microbatches(batch, mb):
-                loss, g = self.value_and_grad(params, part)
-                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-            grads = tree_map(lambda g: g / mb, gsum)
-            loss = loss_sum / mb
-        new_state = dict(state)
+            return self.value_and_grad(params, batch)
+        gsum = loss_sum = None
+        for part in _microbatches(batch, mb):
+            loss, g = self.value_and_grad(params, part)
+            gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        return loss_sum / mb, tree_map(lambda g: g / mb, gsum)
+
+    def _absmax(self):
+        """Under rules, the compression's ``absmax`` tree; else None."""
         lay = tp.layout()
-        cfg = self.model.cfg
+        return None if lay is None else _leaf_absmax(self.model.cfg, lay)
+
+    def _grad_norm(self, grads):
+        """Under rules, the mesh's global norm of ``grads``; else None."""
+        lay = tp.layout()
+        return None if lay is None else _global_norm(self.model.cfg, grads,
+                                                     lay)
+
+    def __call__(self, state: TrainState, batch):
+        loss, grads = self._loss_and_grads(state["params"], batch)
+        new_state = dict(state)
         if self.compress_dcn:
-            grads, new_state["ef"] = ef_compress_grads(
-                grads, state["ef"],
-                None if lay is None else _leaf_absmax(cfg, lay))
+            grads, new_state["ef"] = ef_compress_grads(grads, state["ef"],
+                                                       self._absmax())
         new_params, new_opt, metrics = adamw_update(
-            self.opt_cfg, grads, state["opt"], params,
-            grad_norm=None if lay is None else _global_norm(cfg, grads, lay))
+            self.opt_cfg, grads, state["opt"], state["params"],
+            grad_norm=self._grad_norm(grads))
         new_state["params"] = new_params
         new_state["opt"] = new_opt
         return new_state, dict(metrics, loss=loss)
+
+    def update_(self, state: TrainState, batch) -> dict:
+        """The donated form of a call: the same loss and gradients, then
+        the error feedback and AdamW written into ``state``'s own tensors
+        (``ef_compress_grads_``, ``adamw_update_``), each leaf bitwise what
+        a call returns.  Returns the metrics."""
+        loss, grads = self._loss_and_grads(state["params"], batch)
+        if self.compress_dcn:
+            grads = ef_compress_grads_(grads, state["ef"], self._absmax())
+        metrics = adamw_update_(self.opt_cfg, grads, state["opt"],
+                                state["params"],
+                                grad_norm=self._grad_norm(grads))
+        return dict(metrics, loss=loss)
+
+
+def _batch_keys(cfg: ModelConfig) -> tuple[str, ...]:
+    """The batch's tensors a step reads, in the cell's order."""
+    first = "frames" if cfg.family == "audio" else "tokens"
+    return (first, "labels", *(("image_embeds",) if cfg.family == "vlm"
+                               else ()))
+
+
+def _donated(keys, step: TrainStep, *args):
+    """The train cell's body: ``(step, *batch tensors in ``keys``' order,
+    state) -> (loss, grad norm, lr, state)``."""
+    *inputs, state = args
+    m = step.update_(state, dict(zip(keys, inputs)))
+    return m["loss"], m["grad_norm"], m["lr"], state
+
+
+class DonatedStep:
+    """``step(state, batch) -> (state, metrics)``: the launcher's step, the
+    reference launcher's ``jax.jit(make_train_step(...),
+    donate_argnums=0)``.  It runs ``step.update_`` (a :class:`TrainStep`)
+    through its :class:`~repro_torch.models.graphs.TrainGraph` cell, so
+    the state returned is the dict given, every leaf updated in place at
+    its address.  On the card a cell's first call (the first step on a
+    batch shape and state) runs the step eagerly, which is its result,
+    and captures it; later calls replay it.  On the CPU every call runs
+    it eagerly over the cell's buffers; under a cost counter or a gloo
+    layout every call runs ``cell.eager`` in place.  A state with new
+    tensors (a resumed or re-meshed one) builds a new cell; the old one
+    is dropped when its state is collected.  The metrics (``loss``,
+    ``grad_norm``, ``lr``) are clones of the cell's outputs.
+    :attr:`module` is the compute copy, whose ``.grad`` after a cell's
+    build are the capture's buffers, written by that cell's replays."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self.keys = _batch_keys(step.model.cfg)
+        self.cell = graphs.TrainGraph(functools.partial(_donated, self.keys),
+                                      len(self.keys))
+
+    @property
+    def module(self):
+        return self.step.module
+
+    def __call__(self, state: TrainState, batch):
+        loss, gnorm, lr, state = self.cell(
+            self.step, *(batch[k] for k in self.keys), state)
+        return state, {"grad_norm": gnorm, "lr": lr, "loss": loss}
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,

@@ -18,3 +18,13 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_items(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` of every leaf, nested dicts walked in their own
+    order, each path the keys down to the leaf joined by ``/`` (a flat
+    dict's paths are its keys)."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [item for k, v in tree.items()
+            for item in tree_items(v, f"{prefix}/{k}" if prefix else k)]

@@ -15,6 +15,10 @@ from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import convert, get_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import DonatedStep, make_train_step, train_state_init
+from repro_torch.train.step import local_train_state
+from repro_torch.tree import tree_items, tree_map
 
 ARCH = "qwen2-0.5b"
 B, T, SMAX, K = 2, 4, 32, 4
@@ -140,3 +144,52 @@ def one_rank_body(seed: int) -> dict:
     out["live"] = {n: f.live() for n, f in _entries(model).items()}
     return out
 
+
+def train_body(seed: int) -> dict:
+    """Two ranks, a (data 1, model 2) mesh, qwen2 reduced, two microbatches
+    and ``compress_dcn``: two donated train steps on each rank's blocks
+    of the state under the gloo layout (no cell built: the eager body in
+    place), then with ``Layout.capturable`` patched true (one cell, keyed
+    by the layout); each against two steps of the functional
+    ``TrainStep`` under rules, bit for bit."""
+    cfg, model, _, tokens, _ = _model(seed)
+    opt = AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=10)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    s0 = train_state_init(model, gen, opt, compress_dcn=True, device="cpu")
+    toks = torch.from_numpy(tokens[:2].reshape(-1, 2 * T)).long()
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+    kw = dict(microbatches=2, compress_dcn=True)
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+
+    def steps(step, ruled):
+        with use_rules(mesh):
+            state = tree_map(lambda t: t.clone(), local_train_state(model,
+                                                                    s0))
+            for _ in range(2):
+                got, m = step(state, batch)
+                assert ruled or got is state
+                state = got
+        return state, float(m["loss"])
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(tree_items(a), tree_items(b)))
+
+    want, loss = steps(make_train_step(model, opt, **kw), True)
+    gloo = DonatedStep(make_train_step(model, opt, **kw))
+    got, gloo_loss = steps(gloo, False)
+    out = {"capturable": None, "loss": loss, "built_gloo": gloo.cell.cells(),
+           "equal_gloo": equal(got, want) and gloo_loss == loss}
+    with use_rules(mesh):
+        out["capturable"] = tp.layout().capturable
+    patched = DonatedStep(make_train_step(model, opt, **kw))
+    with mock.patch.object(tp.Layout, "capturable", True):
+        got, patched_loss = steps(patched, False)
+        with use_rules(mesh):
+            ident = tp.layout().ident
+    out["built_patched"] = patched.cell.cells()
+    out["keyed_by_layout"] = all(key[-1] == ident
+                                 for key in patched.cell._cells)
+    out["equal_patched"] = equal(got, want) and patched_loss == loss
+    return out

@@ -9,6 +9,11 @@ qwen2-0.5b, float32:
   tokens bit for bit; with ``capturable`` patched true, each builds one
   cell under the layout, keyed by its identity, with the same logits and
   tokens;
+* the launcher's train step (``DonatedStep``, a ``TrainGraph`` cell) on
+  the same two ranks with two microbatches and ``compress_dcn``: under
+  the gloo layout no cell and its eager body in place, patched one cell
+  keyed by the layout, both bitwise the functional ``TrainStep`` under
+  rules over two steps;
 * one rank on a (data 1, model 1) mesh, where the cache and the params
   have the same shapes with and without rules, ``capturable`` patched
   true: the same cache and params build one cell of each entry without
@@ -45,6 +50,17 @@ def test_gloo_layout_builds_no_cell_and_patched_cells_match():
     for name in ENTRIES:
         np.testing.assert_array_equal(outs[0]["want"][name],
                                       outs[1]["want"][name])
+
+
+def test_train_step_under_a_gloo_layout_runs_eagerly_in_place():
+    outs = run_ranks(ranks.train_body, 2, 0, device="cpu", timeout=240)
+    for rank, out in enumerate(outs):
+        assert out["capturable"] is False, rank
+        assert (out["built_gloo"], out["built_patched"]) == (0, 1), rank
+        assert out["keyed_by_layout"], rank
+        assert out["equal_gloo"] and out["equal_patched"], rank
+        assert np.isfinite(out["loss"]), rank
+    assert outs[0]["loss"] == outs[1]["loss"]       # the mesh's loss
 
 
 def test_cells_under_rules_are_keyed_apart_from_those_without():
