@@ -1,0 +1,7 @@
+"""The device in a latency cell: the share of the traced slice in which no
+device operation ran, in %."""
+from portbench.lib import readers
+
+
+def read(L):
+    return readers.idle_share(L)
