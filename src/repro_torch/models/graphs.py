@@ -104,6 +104,7 @@ import torch
 
 from ..distributed import tp
 from ..kernels import _priced, counters
+from ..obs.trace import model_spans
 from ..tree import tree_items
 
 # device index -> (pool, the graph that holds it): a graph pool lives while
@@ -262,15 +263,19 @@ class Graphed:
         return tuple(self.eager(*args)[:-1])
 
     def _build(self, key, params, inputs, cache, statics) -> tuple:
-        """The cell's first call: its result (the outputs)."""
+        """The cell's first call: its result (the outputs).  The eager run
+        and the capture see no model spans' tracer
+        (:func:`repro_torch.obs.trace.model_spans`), whoever calls, so no
+        graph holds a span call."""
         cell = _Cell(tuple(t.clone(memory_format=torch.contiguous_format)
                            for t in inputs), statics)
-        if inputs[0].device.type == "cuda":
-            first = self._capture(cell, params, cache)
-        else:
-            cell.out = self._body(params, cell, cache)
-            first = tuple(t.clone() for t in cell.out)
-            self.capture_ms.append(None)
+        with model_spans(None):
+            if inputs[0].device.type == "cuda":
+                first = self._capture(cell, params, cache)
+            else:
+                cell.out = self._body(params, cell, cache)
+                first = tuple(t.clone() for t in cell.out)
+                self.capture_ms.append(None)
         self._cells[key] = cell
         lay = tp.layout()
         held = (params, *(t for _, t in tree_items(cache)),

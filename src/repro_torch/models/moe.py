@@ -76,6 +76,7 @@ from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
 from ..distributed import tp
 from ..kernels import counters
+from ..obs.trace import model_span
 from . import layers as L
 from . import transformer
 
@@ -300,20 +301,24 @@ def moe_ep_local(cfg: ModelConfig, p: MoE, x_blk: torch.Tensor,
     e_loc = E // n_cols
     cap = capacity(cfg, N, min_capacity)
     x2d = x_blk.reshape(N, D)
-    vals, idx = route(cfg, p.router, x2d)
-    send, slot, keep = local_dispatch(cfg, x2d, idx, n_cols, cap)
-    recv = send if group is None else _all_to_all(send, group)
-    # recv: (n_src, e_loc, cap, D) -> (e_loc, n_src * cap, D)
-    n_src = recv.shape[0]
-    xe = recv.transpose(0, 1).reshape(e_loc, n_src * cap, D)
-    ye = expert_ffn(cfg, p, xe, slice(None) if local
-                    else slice(col * e_loc, (col + 1) * e_loc))
-    ye = ye.reshape(e_loc, n_src, cap, D).transpose(0, 1)
-    back = ye if group is None else _all_to_all(ye, group)
-    back = torch.cat([back.reshape(E * cap, D),
-                      back.new_zeros((1, D))])             # dropped -> 0
-    w = (vals.reshape(-1) * keep).to(back.dtype)
-    y = (back[slot] * w[:, None]).reshape(N, k, D).sum(dim=1)
+    with model_span("moe.route"):
+        vals, idx = route(cfg, p.router, x2d)
+    with model_span("moe.dispatch"):
+        send, slot, keep = local_dispatch(cfg, x2d, idx, n_cols, cap)
+        recv = send if group is None else _all_to_all(send, group)
+    with model_span("moe.experts"):
+        # recv: (n_src, e_loc, cap, D) -> (e_loc, n_src * cap, D)
+        n_src = recv.shape[0]
+        xe = recv.transpose(0, 1).reshape(e_loc, n_src * cap, D)
+        ye = expert_ffn(cfg, p, xe, slice(None) if local
+                        else slice(col * e_loc, (col + 1) * e_loc))
+        ye = ye.reshape(e_loc, n_src, cap, D).transpose(0, 1)
+    with model_span("moe.combine"):
+        back = ye if group is None else _all_to_all(ye, group)
+        back = torch.cat([back.reshape(E * cap, D),
+                          back.new_zeros((1, D))])         # dropped -> 0
+        w = (vals.reshape(-1) * keep).to(back.dtype)
+        y = (back[slot] * w[:, None]).reshape(N, k, D).sum(dim=1)
     return y.reshape(b, s, D).to(x_blk.dtype)
 
 

@@ -30,6 +30,7 @@ from torch import nn
 from ..configs.base import ModelConfig, torch_dtype
 from ..device import resolve_device
 from ..distributed import tp
+from ..obs.trace import model_span
 from . import layers as L
 
 
@@ -108,10 +109,11 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def _block_prefill(cfg: ModelConfig, lp: Block, x, positions,
                    rope: bool = True, cache: bool = True):
-    h = L.apply_norm(lp.ln1, x, cfg.norm)
-    a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions,
-                                rope=rope, cache=cache)
-    x = x + a
+    with model_span("attn"):
+        h = L.apply_norm(lp.ln1, x, cfg.norm)
+        a, k, v = L.attention_apply(cfg, lp.attn, h, positions=positions,
+                                    rope=rope, cache=cache)
+        x = x + a
     h = L.apply_norm(lp.ln2, x, cfg.norm)
     x = x + lp.ffn(cfg, h)
     return x, (k, v)

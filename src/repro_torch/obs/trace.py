@@ -22,18 +22,37 @@ processes, tracks to threads, spans to complete ``X`` events and instants
 to ``i`` events, with ``M`` metadata naming both.
 
 The default everywhere is :data:`NULL_TRACER`: a no-op whose ``enabled``
-flag lets hot paths skip even argument construction — the decode loop pays
-one attribute check per chunk (benchmarked in
-``benchmarks/obs_overhead.py``, CI-bounded).
+flag lets hot paths skip even argument construction — the engine's step
+pays a few attribute checks.  The port's tracing cost is measured on the
+card by the benchmark (``portbench/``): its untraced runs (``--trace 0``),
+compared commit against commit, carry the null tracer's cost, and
+``PERF.md`` gives ``output_tok_s`` with the tracer on against off.
+
+Two additions serve the device trace.  :meth:`SpanTracer.trace_ns` maps a
+span's timestamp onto ``torch.profiler``'s clock (an event's
+``start_ns()``, Unix nanoseconds) through ``(clock, time.time_ns())``
+pairs the engine stamps at the top of every traced step
+(:meth:`SpanTracer.anchor`), so a program span can be laid beside the
+kernels and idle gaps the profiler saw.  And :func:`model_spans` hands a
+tracer to the model bodies without a parameter: inside it,
+:func:`model_span` records a span per layer boundary; outside it (graph
+captures and replays, training, every untraced run) a span call is one
+``ContextVar.get`` and a shared ``nullcontext``.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import contextvars
 import json
 import time
 from collections import deque
 from typing import Callable
+
+#: Anchors a tracer keeps; past it the older half goes (one a traced
+#: engine step: hours of steps).
+ANCHOR_CAP = 1 << 16
 
 
 class NullTracer:
@@ -103,6 +122,8 @@ class SpanTracer:
         self.events: deque[dict] = deque(maxlen=cap)
         self._bind: dict = {}            # rid -> trace id (None: sampled out)
         self.tick: int | None = None     # current pump tick (set_tick)
+        self._anchor_ts: list[float] = []    # clock readings (anchor) ...
+        self._anchor_ns: list[int] = []      # ... and Unix ns beside them
 
     # -- logical clock -----------------------------------------------------
     def set_tick(self, tick: int) -> None:
@@ -112,6 +133,31 @@ class SpanTracer:
         samples (stamped with the same tick) on one clock even when a
         chaos-delayed delivery skews their wall timestamps."""
         self.tick = tick
+
+    # -- the device trace's clock ------------------------------------------
+    def anchor(self) -> None:
+        """Stamp one pair of this tracer's clock and ``time.time_ns()``
+        (the midpoint of two reads around the clock's), the mapping
+        :meth:`trace_ns` takes from here on.  Recording never calls it,
+        so a scripted clock sees no extra read."""
+        u0 = time.time_ns()
+        ts = self.clock()
+        u1 = time.time_ns()
+        if len(self._anchor_ts) >= ANCHOR_CAP:
+            del self._anchor_ts[:ANCHOR_CAP // 2]
+            del self._anchor_ns[:ANCHOR_CAP // 2]
+        self._anchor_ts.append(ts)
+        self._anchor_ns.append((u0 + u1) // 2)
+
+    def trace_ns(self, ts: float) -> int:
+        """``ts`` on this tracer's clock as ``torch.profiler`` stamps the
+        same moment (an event's ``start_ns()``: Unix nanoseconds), through
+        the last anchor at or before ``ts`` (the first, for an earlier
+        ``ts``; one is stamped now if there is none)."""
+        if not self._anchor_ts:
+            self.anchor()
+        i = max(bisect.bisect_right(self._anchor_ts, ts) - 1, 0)
+        return self._anchor_ns[i] + round((ts - self._anchor_ts[i]) * 1e9)
 
     # -- trace identity ----------------------------------------------------
     def trace_for(self, rid) -> str | None:
@@ -233,3 +279,36 @@ class SpanTracer:
     def export(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f, indent=1, sort_keys=True)
+
+
+# -- the model bodies' spans -------------------------------------------------
+
+#: (tracer, trace, track, args) the model bodies record into, or None.
+_MODEL: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_model_spans", default=None)
+_NO_SPAN = contextlib.nullcontext()      # stateless: shared by every call
+
+
+@contextlib.contextmanager
+def model_spans(tracer, trace: str | None = None, track: str | None = None,
+                **args):
+    """While the block runs, :func:`model_span` records into ``tracer``
+    on ``trace`` and ``track``, each span carrying ``args`` (the engine's
+    step index).  ``tracer`` None unsets it: a graph cell's build runs so,
+    so no captured body holds a span call."""
+    token = _MODEL.set(None if tracer is None
+                       else (tracer, trace, track, args))
+    try:
+        yield
+    finally:
+        _MODEL.reset(token)
+
+
+def model_span(name: str):
+    """A span at a layer boundary of a model body (``attn``,
+    ``moe.route`` ...), recorded only inside :func:`model_spans`."""
+    ctx = _MODEL.get()
+    if ctx is None:
+        return _NO_SPAN
+    tracer, trace, track, base = ctx
+    return tracer.span(name, trace, track, **base)

@@ -45,11 +45,30 @@ constructor and surface.
   **device** time: every latency sample is taken after the host sync that
   ends the work (the ``argmax`` of a prefill or of a prompt's last chunk,
   a stream synchronisation after any other chunk, the ``(B, k)`` copy of a
-  decode chunk), never after the enqueue alone.
+  decode chunk), never after the enqueue alone;
+* with a :class:`~repro_torch.obs.SpanTracer` attached (``attach_obs``)
+  every step is one ``step`` span on the engine's track, kept under any
+  sampling, with its decode chunk ``k``, its live slots ``active``, its
+  whole prefills ``prefills`` and its PTT calls ``ptt_updates`` (every
+  ``schedule_*`` and ``record``) and their host time ``ptt_ns``, counted
+  around the calls.  Its children carry its index ``step``: the
+  per-request ``prefill`` (and within it ``prefill.dispatch``, from
+  taking the request to ``Model.prefill`` returning; the rest is its
+  argmax), ``prefill-chunk``, ``decode.launch`` (the decode cell's call),
+  ``decode.wait`` (the token copy) and ``trace.record``: the children are
+  held until the step's work is done and recorded then, with the
+  per-request ``decode-chunk`` spans, inside ``trace.record``.  What the
+  children leave of the step is the engine's own host work.  Inside a
+  whole prefill the model bodies record a span a layer boundary
+  (``attn``, ``moe.*``: :func:`repro_torch.obs.trace.model_spans`), which
+  a traced prefill pays for.  The tracer is anchored to the device
+  trace's clock at the top of each step
+  (:meth:`~repro_torch.obs.SpanTracer.trace_ns`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -59,6 +78,7 @@ import torch
 
 from ..models import Model
 from ..obs import NULL_TRACER
+from ..obs.trace import model_spans
 from .scheduler import ElasticServeScheduler
 
 
@@ -116,6 +136,23 @@ class _Prefill:
                                  # until it owns the working cache
 
 
+@dataclasses.dataclass
+class _StepTally:
+    """What a traced step counts for its ``step`` span."""
+    step: int = 0                # the step's index on this engine
+    t0: float = 0.0
+    k: int = 0                   # tokens decoded a slot
+    prefills: int = 0            # whole prefills
+    ptt_updates: int = 0         # schedule_* and record calls
+    ptt_ns: int = 0              # their host time
+    # the step's children, recorded after its end is stamped:
+    # (name, trace, ts, dur, args) ...
+    held: list = dataclasses.field(default_factory=list)
+    # ... and its decode chunk, one ``decode-chunk`` a request:
+    # (ts, dur, k, the requests' ids)
+    chunk: tuple | None = None
+
+
 class ServeEngine:
     def __init__(self, model: Model, params, max_batch: int, max_seq: int,
                  num_groups: int = 1, decode_chunk: int = 1,
@@ -171,6 +208,7 @@ class ServeEngine:
         # this callback; it never takes a slot here
         self.on_prefill_complete = None
         self.tracer = NULL_TRACER
+        self._tally = _StepTally()   # the traced step in progress
         self.metrics = None
         self.obs_name = "engine"
         self._served = 0         # requests finished on this engine
@@ -419,6 +457,28 @@ class ServeEngine:
             return True
         return False
 
+    def _ptt(self, call, *args):
+        """A PTT call (``schedule_*`` or ``record``), counted and timed on
+        the host for the traced step's span: each lasts microseconds, too
+        short for a span of its own."""
+        if not self.tracer.enabled:
+            return call(*args)
+        t0 = time.perf_counter_ns()
+        out = call(*args)
+        self._tally.ptt_ns += time.perf_counter_ns() - t0
+        self._tally.ptt_updates += 1
+        return out
+
+    def _model_spans(self, rid):
+        """The context a whole prefill's model bodies record their spans
+        in: ``rid``'s trace on this engine's track, tagged with the step;
+        none with the tracer off or ``rid`` sampled out."""
+        tid = self.tracer.trace_for(rid) if self.tracer.enabled else None
+        if tid is None:
+            return contextlib.nullcontext()
+        return model_spans(self.tracer, tid, self.obs_name,
+                           step=self._tally.step)
+
     def _admit(self) -> None:
         # ragged continuous batching: any free slot takes any queued prompt
         # (chunk-prefilled requests first, their cache already on the
@@ -447,24 +507,29 @@ class ServeEngine:
             req = self.queue.popleft()
             t0 = time.perf_counter()
             req.t_admit = t0
-            d = self.scheduler.schedule_prefill(len(req.prompt))
+            d = self._ptt(self.scheduler.schedule_prefill, len(req.prompt))
             batch = {"tokens": torch.as_tensor(np.asarray(req.prompt),  # analysis: allow-host-sync(prompt is host numpy, no device transfer)
                                                device=self.device
                                                ).long()[None, :]}
             for name, val in req.extras.items():
                 batch[name] = torch.tensor(np.asarray(val),  # analysis: allow-host-sync(extras are host numpy, no device transfer)
                                            device=self.device)[None]
-            logits, cache = self.model.prefill(self.params, batch)
+            with self._model_spans(req.rid):
+                logits, cache = self.model.prefill(self.params, batch)
+            t_ret = time.perf_counter() if self.tracer.enabled else 0.0
             # the prefill's ONE host sync; the PTT sample is taken after it
             next_tok = int(torch.argmax(logits[0, -1]))  # analysis: allow-host-sync(the one sanctioned sync per whole-prompt prefill)
             prefill_dur = time.perf_counter() - t0
-            self.scheduler.record(d, prefill_dur, time.perf_counter())
+            self._ptt(self.scheduler.record, d, prefill_dur,
+                      time.perf_counter())
             if self.tracer.enabled:
+                self._tally.prefills += 1
                 tid = self.tracer.trace_for(req.rid)
                 if tid is not None:
-                    self.tracer.complete(
-                        "prefill", tid, self.obs_name,
-                        ts=t0, dur=prefill_dur, prompt_len=len(req.prompt))
+                    self._tally.held += [
+                        ("prefill", tid, t0, prefill_dur,
+                         {"prompt_len": len(req.prompt)}),
+                        ("prefill.dispatch", tid, t0, t_ret - t0, {})]
             if self._h_prefill is not None:
                 self._h_prefill.observe(prefill_dur)
             if self._complete_prefill(req, next_tok, cache):
@@ -487,7 +552,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         if pf.t_start is None:
             pf.t_start = t0
-        d = self.scheduler.schedule_prefill(qlen)
+        d = self._ptt(self.scheduler.schedule_prefill, qlen)
         chunk = np.zeros((1, C), np.int64)
         chunk[0, :qlen] = prompt[pf.consumed:pf.consumed + qlen]
         tokens, start, live = self._chunk_inputs(chunk, pf.consumed, qlen)
@@ -503,16 +568,16 @@ class ServeEngine:
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # analysis: allow-host-sync(the one sanctioned sync per prefill chunk)
         dur = time.perf_counter() - t0
-        self.scheduler.record(d, dur, time.perf_counter())
+        self._ptt(self.scheduler.record, d, dur, time.perf_counter())
         self.last_prefill_chunk_latency = dur
         if self._h_prefill_chunk is not None:
             self._h_prefill_chunk.observe(dur)
         if self.tracer.enabled:
             tid = self.tracer.trace_for(pf.req.rid)
             if tid is not None:
-                self.tracer.complete("prefill-chunk", tid, self.obs_name,
-                                     ts=t0, dur=dur, tokens=qlen,
-                                     consumed=pf.consumed)
+                self._tally.held.append(
+                    ("prefill-chunk", tid, t0, dur,
+                     {"tokens": qlen, "consumed": pf.consumed}))
         if self.on_prefill_latency is not None:
             self.on_prefill_latency(dur)
         if done:
@@ -707,9 +772,46 @@ class ServeEngine:
         flight, and decode one ``decode_chunk``-token chunk for the batch
         at per-slot positions.  Returns the number of active sequences.
         ``last_step_latency`` and ``on_step_latency`` receive the decode
-        latency per token (elapsed / chunk)."""
+        latency per token (elapsed / chunk).  Traced, the step is one
+        ``step`` span (module docstring)."""
         if self.crashed:
             return 0                 # a dead process steps nothing
+        if not self.tracer.enabled:
+            return self._step()
+        self.tracer.anchor()
+        st = self._tally = _StepTally(step=self._tally.step + 1,
+                                      t0=time.perf_counter())
+        n_active = 0
+        try:
+            n_active = self._step()
+        finally:
+            self._record_step(st, n_active)
+        return n_active
+
+    def _record_step(self, st: _StepTally, n_active: int) -> None:
+        """Record a traced step's spans once its work is done: its held
+        children, then ``trace.record`` over the time that recording took
+        and the ``step`` span around all of it.  So the tracer's own cost
+        is a child of the step, not the engine's work."""
+        tr, track = self.tracer, self.obs_name
+        t1 = time.perf_counter()
+        for name, trace, ts, dur, args in st.held:
+            tr.complete(name, trace, track, ts=ts, dur=dur, step=st.step,
+                        **args)
+        if st.chunk is not None:
+            ts, dur, k, rids = st.chunk
+            for rid in rids:
+                tr.complete("decode-chunk", tr.trace_for(rid), track,
+                            ts=ts, dur=dur, tokens=k)
+        t2 = time.perf_counter()
+        tr.complete("trace.record", track, track, ts=t1, dur=t2 - t1,
+                    step=st.step)
+        tr.complete("step", track, track, ts=st.t0, dur=t2 - st.t0,
+                    step=st.step, k=st.k, active=n_active,
+                    prefills=st.prefills, ptt_updates=st.ptt_updates,
+                    ptt_ns=st.ptt_ns)
+
+    def _step(self) -> int:
         self._admit()
         self._advance_prefill()
         n_active = self.active_count()
@@ -718,13 +820,14 @@ class ServeEngine:
             self._g_queue.set(float(self.pending()))
         if n_active == 0:
             return 0
-        d = self.scheduler.schedule_decode(group=0)
+        d = self._ptt(self.scheduler.schedule_decode, 0)
         t0 = time.perf_counter()
         if self._dev_dirty or self._dev_tok is None:
             self._dev_tok = torch.tensor(self.cur_token, dtype=torch.long,
                                          device=self.device)
             self._dev_pos = torch.tensor(self.pos, device=self.device)
             self._dev_dirty = False
+        t_call = time.perf_counter() if self.tracer.enabled else 0.0
         if self.fused:
             k = self.decode_chunk
             toks_dev, self._dev_tok, self._dev_pos, self.cache = (
@@ -738,17 +841,22 @@ class ServeEngine:
             toks_dev = torch.argmax(logits[:, 0], dim=-1)[:, None]
             self._dev_tok = toks_dev
             self._dev_pos = self._dev_pos + 1
+        t_ret = time.perf_counter() if self.tracer.enabled else 0.0
         # the chunk's ONE host sync: a (B, k) block of token ids; the PTT
         # sample below is taken after it, so it measures device time
         toks = toks_dev.cpu().numpy()  # analysis: allow-host-sync(the one sanctioned sync per decode chunk)
         decode_elapsed = time.perf_counter() - t0
-        self.scheduler.record(d, decode_elapsed, time.perf_counter())
+        self._ptt(self.scheduler.record, d, decode_elapsed,
+                  time.perf_counter())
         if self.tracer.enabled:
-            for req in self.active:
-                if req is not None:
-                    self.tracer.complete(
-                        "decode-chunk", self.tracer.trace_for(req.rid),
-                        self.obs_name, ts=t0, dur=decode_elapsed, tokens=k)
+            st = self._tally
+            st.k = k
+            st.held += [
+                ("decode.launch", self.obs_name, t_call, t_ret - t_call, {}),
+                ("decode.wait", self.obs_name, t_ret,
+                 t0 + decode_elapsed - t_ret, {})]
+            st.chunk = (t0, decode_elapsed, k,
+                        [r.rid for r in self.active if r is not None])
         for i, req in enumerate(self.active):
             if req is None:
                 continue
